@@ -1,0 +1,20 @@
+"""ceph_tpu_torch: the PyTorch/CUDA port of ``ceph_tpu``.
+
+It mirrors the JAX package's layout, one slice at a time, and is held
+byte for byte against it by the ``tests/test_torch_*.py`` tests. It
+imports torch and never jax, nor anything of ``ceph_tpu``.
+
+- ``ceph_tpu_torch.gf``     GF(2^8) tables (numpy), torch ops, and the
+                            hand-written CUDA encode kernel (``kernels``).
+- ``ceph_tpu_torch.ec``     Reed-Solomon erasure coding behind the
+                            ``ErasureCodeInterface`` contract, plugin
+                            registry, profiles.
+- ``ceph_tpu_torch.bench``  ``ceph_erasure_code_benchmark``-compatible CLI.
+- ``ceph_tpu_torch.utils``  Device selection, kernel build, timing,
+                            bounds, perf counters.
+- ``ceph_tpu_torch/csrc``   CUDA sources, built by ``utils.cuda_build``.
+
+Entry points run on CUDA unless the caller asks for the CPU.
+"""
+
+__version__ = "0.1.0"
