@@ -9,9 +9,16 @@ imports torch and never jax, nor anything of ``ceph_tpu``.
 - ``ceph_tpu_torch.ec``     Reed-Solomon erasure coding behind the
                             ``ErasureCodeInterface`` contract, plugin
                             registry, profiles.
-- ``ceph_tpu_torch.bench``  ``ceph_erasure_code_benchmark``-compatible CLI.
+- ``ceph_tpu_torch.crush``  CRUSH: map model, hashes, crush_ln, the rule
+                            VM (``mapper.Mapper``), the hand-written CUDA
+                            straw2 rule kernel (``kernels``), the scalar
+                            spec, builder, compiler, tester.
+- ``ceph_tpu_torch.osd``    OSDMap placement (``pg_to_up_acting_osds``),
+                            PG types, object-name hashes.
+- ``ceph_tpu_torch.bench``  ``ceph_erasure_code_benchmark``-compatible CLI,
+                            ``crushtool`` and ``crush_sweep``.
 - ``ceph_tpu_torch.utils``  Device selection, kernel build, timing,
-                            bounds, perf counters.
+                            bounds, perf counters, logging.
 - ``ceph_tpu_torch/csrc``   CUDA sources, built by ``utils.cuda_build``.
 
 Entry points run on CUDA unless the caller asks for the CPU.

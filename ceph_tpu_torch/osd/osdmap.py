@@ -1,0 +1,626 @@
+"""OSDMap: epoch-versioned cluster map + batched PG->OSD placement.
+
+ref: src/osd/OSDMap.{h,cc} (OSDMap); the port of
+``ceph_tpu/osd/osdmap.py``'s placement half. The reference maps one PG
+per call (pg_to_up_acting_osds); here the same pipeline — pps, CRUSH,
+nonexistent-removal, upmap, up-filter, primary affinity, pg_temp — runs
+over an entire seed array at once, with the CRUSH step on the card
+(``crush.mapper.Mapper``) and the sparse overrides (upmap/pg_temp,
+typically a few thousand entries) as host-side numpy scatters.
+
+``pg_to_crush_osds`` (pure CRUSH output) and ``_pipeline_from_crush``
+(everything after CRUSH) are split because the two halves invalidate
+differently: up/down flips, primary affinity and the override dicts
+never change CRUSH output, so ``calc_pg_upmaps`` replays only the numpy
+half over cached raw rows.
+
+Not here yet: the epoch-keyed lookup memo and the OSDMapMapping table
+(``osd/osdmap_mapping.py``), the device mesh, and the cluster state the
+placement path never reads (incrementals, service flags, blocklist,
+addresses: the host-only cluster) (ROADMAP Queue A). The
+CRUSH step runs on CUDA unless ``OSDMap(..., device="cpu")``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ceph_tpu_torch.crush import hash as chash
+from ceph_tpu_torch.crush.mapper import Mapper
+from ceph_tpu_torch.crush.types import ITEM_NONE, WEIGHT_ONE, CrushMap
+from ceph_tpu_torch.osd.types import ObjectLocator, PGPool, pg_t
+
+MAX_PRIMARY_AFFINITY = 0x10000  # ref: CEPH_OSD_MAX_PRIMARY_AFFINITY
+DEFAULT_PRIMARY_AFFINITY = 0x10000
+
+# osd_state flags (ref: src/osd/OSDMap.h CEPH_OSD_EXISTS / CEPH_OSD_UP).
+STATE_EXISTS = 1
+STATE_UP = 2
+
+_EMPTY_ROWS = np.empty(0, dtype=np.int64)
+
+
+def _index_overrides(folded: np.ndarray, pgs) -> dict[int, np.ndarray]:
+    """seed -> matching row indices, one O(N log E) pass instead of an
+    O(N) scan per override entry."""
+    seeds = np.unique(np.array([pg.seed for pg in pgs], dtype=folded.dtype))
+    if not seeds.size:
+        return {}
+    hit = np.flatnonzero(np.isin(folded, seeds))
+    out: dict[int, np.ndarray] = {}
+    for s in seeds:
+        out[int(s)] = hit[folded[hit] == s]
+    return out
+
+
+def _shift_left(rows: np.ndarray) -> np.ndarray:
+    """Stable left-compaction of non-NONE entries (replicated up-sets)."""
+    w = rows.shape[1]
+    keys = np.where(rows == ITEM_NONE, w, 0) + np.arange(w)[None, :]
+    order = np.argsort(keys, axis=1, kind="stable")
+    return np.take_along_axis(rows, order, axis=1)
+
+
+class OSDMap:
+    """The authoritative placement state at one epoch."""
+
+    def __init__(self, crush: CrushMap, max_osd: int | None = None,
+                 device=None):
+        self.epoch = 1
+        self.device = device
+        self.crush = crush
+        self.max_osd = max_osd if max_osd is not None else crush.max_devices
+        n = self.max_osd
+        self.osd_state = np.full(n, STATE_EXISTS | STATE_UP, dtype=np.int32)
+        self.osd_weight = np.full(n, WEIGHT_ONE, dtype=np.int64)
+        self.osd_primary_affinity = np.full(n, DEFAULT_PRIMARY_AFFINITY,
+                                            dtype=np.int64)
+        self.pools: dict[int, PGPool] = {}
+        self.pg_temp: dict[pg_t, list[int]] = {}
+        self.primary_temp: dict[pg_t, int] = {}
+        self.pg_upmap: dict[pg_t, tuple] = {}
+        self.pg_upmap_items: dict[pg_t, list] = {}
+        self._mappers: dict[int | None, Mapper] = {}
+        # bumped whenever the crush TREE changes (not reweights)
+        self.crush_version = 1
+
+    # -- state predicates (array-capable) ---------------------------------
+    def exists(self, osd):
+        safe = np.clip(osd, 0, self.max_osd - 1)
+        ok = (self.osd_state[safe] & STATE_EXISTS) != 0
+        return ok & (np.asarray(osd) >= 0) & (np.asarray(osd) < self.max_osd)
+
+    def is_up(self, osd):
+        safe = np.clip(osd, 0, self.max_osd - 1)
+        return (self.osd_state[safe] & STATE_UP) != 0
+
+    def is_out(self, osd) -> bool:
+        return self.osd_weight[osd] == 0
+
+    # -- mutation (each bumps the epoch; ref: OSDMap::apply_incremental) --
+    def _dirty(self, crush_changed: bool = False) -> None:
+        self.epoch += 1
+        if crush_changed:
+            self._mappers.clear()
+            self.crush_version += 1
+
+    def set_max_osd(self, n: int) -> None:
+        grow = n - self.max_osd
+        if grow > 0:
+            self.osd_state = np.concatenate(
+                [self.osd_state, np.zeros(grow, dtype=np.int32)])
+            self.osd_weight = np.concatenate(
+                [self.osd_weight, np.zeros(grow, dtype=np.int64)])
+            self.osd_primary_affinity = np.concatenate(
+                [self.osd_primary_affinity,
+                 np.full(grow, DEFAULT_PRIMARY_AFFINITY, dtype=np.int64)])
+        else:
+            self.osd_state = self.osd_state[:n].copy()
+            self.osd_weight = self.osd_weight[:n].copy()
+            self.osd_primary_affinity = self.osd_primary_affinity[:n].copy()
+        self.max_osd = n
+        self.crush.max_devices = max(self.crush.max_devices, n)
+        self._dirty(crush_changed=True)
+
+    def create_osd(self, osd: int, weight: int = WEIGHT_ONE) -> None:
+        if osd >= self.max_osd:
+            self.set_max_osd(osd + 1)
+        self.osd_state[osd] = STATE_EXISTS | STATE_UP
+        self.osd_weight[osd] = weight
+        self._dirty()
+
+    def mark_up(self, osd: int) -> None:
+        self.osd_state[osd] |= STATE_UP
+        self._dirty()
+
+    def mark_down(self, osd: int) -> None:
+        self.osd_state[osd] &= ~STATE_UP
+        self._dirty()
+
+    def mark_out(self, osd: int) -> None:
+        self.set_weight(osd, 0)
+
+    def mark_in(self, osd: int) -> None:
+        self.set_weight(osd, WEIGHT_ONE)
+
+    def set_weight(self, osd: int, weight: int) -> None:
+        """The in/out reweight (16.16), consumed by CRUSH's is_out check."""
+        self.osd_weight[osd] = weight
+        for mp in self._mappers.values():
+            mp.set_device_weights(self._device_weights())
+        self._dirty()
+
+    def set_primary_affinity(self, osd: int, aff: int) -> None:
+        self.osd_primary_affinity[osd] = aff
+        self._dirty()
+
+    def set_crush(self, crush: CrushMap) -> None:
+        self.crush = crush
+        if crush.max_devices > self.max_osd:
+            self.set_max_osd(crush.max_devices)
+        self._dirty(crush_changed=True)
+
+    def add_pool(self, pool: PGPool) -> PGPool:
+        self.pools[pool.id] = pool
+        self._dirty()
+        return pool
+
+    # -- mapper -----------------------------------------------------------
+    def _device_weights(self) -> np.ndarray:
+        w = np.zeros(max(self.crush.max_devices, self.max_osd),
+                     dtype=np.int64)
+        w[:self.max_osd] = self.osd_weight
+        return w
+
+    def _choose_args_key(self, pool_id: int) -> int | None:
+        """Weight-set selection: a pool-keyed entry wins, else the
+        compat/default set (-1), else none (ref: CrushWrapper::
+        choose_args_get_with_fallback)."""
+        if pool_id in self.crush.choose_args:
+            return pool_id
+        if -1 in self.crush.choose_args:
+            return -1
+        return None
+
+    def mapper(self, choose_args_key: int | None = None) -> Mapper:
+        mp = self._mappers.get(choose_args_key)
+        if mp is None:
+            mp = Mapper(self.crush,
+                        device_weights=self._device_weights(),
+                        choose_args=choose_args_key, device=self.device)
+            self._mappers[choose_args_key] = mp
+        return mp
+
+    def serving_mapper(self, pool_id: int) -> Mapper:
+        """THE Mapper pg_to_crush_osds uses for this pool — the single
+        selection site, so callers reading post-sweep state
+        (last_map_path) cannot drift from the sweep itself."""
+        return self.mapper(self._choose_args_key(pool_id))
+
+    # -- object -> PG ------------------------------------------------------
+    def object_locator_to_pg(self, name: str, loc: ObjectLocator) -> pg_t:
+        """ref: OSDMap::object_locator_to_pg (raw pg; fold with
+        pool.raw_pg_to_pg)."""
+        pool = self.pools[loc.pool]
+        if loc.hash >= 0:
+            ps = loc.hash
+        else:
+            ps = pool.hash_key(loc.key or name, loc.nspace)
+        return pg_t(loc.pool, ps)
+
+    # -- PG -> OSDs, batched ----------------------------------------------
+    def pg_to_crush_osds(self, pool_id: int,
+                         seeds) -> tuple[np.ndarray, np.ndarray]:
+        """PURE CRUSH output (no nonexistent-removal) + pps. This is
+        the half of the pipeline that only weight/topology changes can
+        invalidate — OSDMapMapping caches it per pool so up/down flips
+        and override edits replay just ``_pipeline_from_crush``."""
+        raw, pps, _paths = self.pg_to_crush_osds_path(pool_id, seeds)
+        return raw, pps
+
+    def pg_to_crush_osds_path(self, pool_id: int, seeds) -> tuple[
+            np.ndarray, np.ndarray, tuple[str | None, str | None]]:
+        """``pg_to_crush_osds`` plus this sweep's engine evidence
+        ``(expected, actual)``: the serving Mapper's plan
+        (``mapping_path``) and the engine the call ran on."""
+        pool = self.pools[pool_id]
+        seeds = np.asarray(seeds, dtype=np.uint32)
+        pps = pool.raw_pg_to_pps(seeds, xp=np)
+        mp = self.serving_mapper(pool.id)
+        expected = mp.expected_path(pool.crush_rule, pool.size)
+        out, actual = mp.map_pgs_path(pool.crush_rule, pps, pool.size)
+        return out.cpu().numpy(), pps, (expected, actual)
+
+    def pg_to_raw_osds(self, pool_id: int,
+                       seeds) -> tuple[np.ndarray, np.ndarray]:
+        """CRUSH output with nonexistent devices removed
+        (ref: OSDMap::pg_to_raw_osds)."""
+        pool = self.pools[pool_id]
+        raw, pps = self.pg_to_crush_osds(pool_id, seeds)
+        return self._remove_nonexistent(pool, raw), pps
+
+    def _remove_nonexistent(self, pool: PGPool, raw: np.ndarray) -> np.ndarray:
+        """ref: OSDMap::_remove_nonexistent_osds."""
+        bad = (raw != ITEM_NONE) & ~self.exists(raw)
+        raw = np.where(bad, ITEM_NONE, raw)
+        if pool.can_shift_osds():
+            raw = _shift_left(raw)
+        return raw
+
+    def _apply_upmap(self, pool: PGPool, seeds: np.ndarray,
+                     raw: np.ndarray) -> np.ndarray:
+        """Sparse explicit overrides (ref: OSDMap::_apply_upmap)."""
+        if not self.pg_upmap and not self.pg_upmap_items:
+            return raw
+        folded = pool.raw_pg_to_pg(seeds, xp=np)
+        rows_of = _index_overrides(
+            folded, [pg for pg in self.pg_upmap if pg.pool == pool.id] +
+            [pg for pg in self.pg_upmap_items if pg.pool == pool.id])
+        # A REJECTED pg_upmap entry settles the PG (the scalar walk
+        # returns early); a valid one is applied and then falls through
+        # to pg_upmap_items. Only in-range zero-weight targets reject.
+        settled: set[int] = set()
+        for pg, target in self.pg_upmap.items():
+            if pg.pool != pool.id:
+                continue
+            rows = rows_of.get(pg.seed, _EMPTY_ROWS)
+            if not rows.size:
+                continue
+            if any(o != ITEM_NONE and 0 <= o < self.max_osd and
+                   self.osd_weight[o] == 0 for o in target):
+                settled.add(pg.seed)
+                continue  # reject mappings onto marked-out osds
+            row = np.full(raw.shape[1], ITEM_NONE, dtype=raw.dtype)
+            row[:min(len(target), raw.shape[1])] = \
+                list(target)[:raw.shape[1]]
+            raw[rows] = row
+        for pg, pairs in self.pg_upmap_items.items():
+            if pg.pool != pool.id or pg.seed in settled:
+                continue
+            rows = rows_of.get(pg.seed, _EMPTY_ROWS)
+            for ri in rows:
+                row = raw[ri]
+                for frm, to in pairs:
+                    if to in row:
+                        continue
+                    if to < 0 or to >= self.max_osd or \
+                            self.osd_weight[to] == 0:
+                        continue
+                    pos = np.flatnonzero(row == frm)
+                    if pos.size:
+                        row[pos[0]] = to
+        return raw
+
+    def _raw_to_up(self, pool: PGPool, raw: np.ndarray) -> np.ndarray:
+        """Drop down/gone devices (ref: OSDMap::_raw_to_up_osds)."""
+        ok = (raw != ITEM_NONE) & self.exists(raw) & self.is_up(
+            np.clip(raw, 0, self.max_osd - 1))
+        up = np.where(ok, raw, ITEM_NONE)
+        if pool.can_shift_osds():
+            up = _shift_left(up)
+        return up
+
+    @staticmethod
+    def _pick_primary(osds: np.ndarray) -> np.ndarray:
+        """First non-NONE entry per row, -1 if none
+        (ref: OSDMap::_pick_primary)."""
+        valid = osds != ITEM_NONE
+        has = valid.any(axis=1)
+        pos = np.argmax(valid, axis=1)
+        return np.where(has, np.take_along_axis(
+            osds, pos[:, None], axis=1)[:, 0], -1)
+
+    def _apply_primary_affinity(self, pps: np.ndarray, up: np.ndarray,
+                                primary: np.ndarray) -> np.ndarray:
+        """ref: OSDMap::_apply_primary_affinity — hash-gated pass-over of
+        low-affinity primaries, vectorized over (pg, slot)."""
+        if (self.osd_primary_affinity == DEFAULT_PRIMARY_AFFINITY).all():
+            return primary
+        valid = up != ITEM_NONE
+        safe = np.clip(up, 0, self.max_osd - 1)
+        aff = self.osd_primary_affinity[safe]
+        h = chash.hash32_2(pps[:, None].astype(np.uint32),
+                           up.astype(np.uint32), xp=np).astype(np.int64) >> 16
+        accept = valid & ((aff >= MAX_PRIMARY_AFFINITY) | (h < aff))
+        any_acc = accept.any(axis=1)
+        pos = np.argmax(accept, axis=1)
+        cand = np.take_along_axis(up, pos[:, None], axis=1)[:, 0]
+        return np.where(any_acc, cand, primary)
+
+    def _get_temp_osds(self, pool: PGPool, seeds: np.ndarray,
+                       up: np.ndarray, up_primary: np.ndarray):
+        """ref: OSDMap::_get_temp_osds."""
+        acting = up.copy()
+        acting_primary = up_primary.copy()
+        if not self.pg_temp and not self.primary_temp:
+            return acting, acting_primary
+        folded = pool.raw_pg_to_pg(seeds, xp=np)
+        rows_of = _index_overrides(
+            folded, [pg for pg in self.pg_temp if pg.pool == pool.id] +
+            [pg for pg in self.primary_temp if pg.pool == pool.id])
+        for pg, osds in self.pg_temp.items():
+            if pg.pool != pool.id:
+                continue
+            rows = rows_of.get(pg.seed, _EMPTY_ROWS)
+            if not rows.size:
+                continue
+            kept = [o for o in osds if o == ITEM_NONE or bool(
+                self.exists(np.asarray(o)))]
+            if not any(o != ITEM_NONE for o in kept):
+                continue
+            row = np.full(acting.shape[1], ITEM_NONE, dtype=acting.dtype)
+            row[:min(len(kept), len(row))] = kept[:len(row)]
+            acting[rows] = row
+            prim = next((o for o in kept if o != ITEM_NONE), -1)
+            acting_primary[rows] = prim
+        for pg, p in self.primary_temp.items():
+            if pg.pool != pool.id:
+                continue
+            acting_primary[rows_of.get(pg.seed, _EMPTY_ROWS)] = p
+        return acting, acting_primary
+
+    def _pipeline_from_crush(self, pool: PGPool, seeds: np.ndarray,
+                             craw: np.ndarray, pps: np.ndarray):
+        """Everything AFTER the CRUSH step (ref: the tail of
+        OSDMap::_pg_to_up_acting_osds): nonexistent-removal -> upmap ->
+        up-filter -> primary pick/affinity -> pg_temp/primary_temp.
+        ``craw`` is never mutated, so a caller may replay this over
+        cached raw rows (OSDMapMapping delta remap, the balancer's
+        candidate probes)."""
+        raw = self._remove_nonexistent(pool, craw)   # returns a copy
+        raw = self._apply_upmap(pool, seeds, raw)
+        up = self._raw_to_up(pool, raw)
+        up_primary = self._pick_primary(up)
+        up_primary = self._apply_primary_affinity(pps, up, up_primary)
+        acting, acting_primary = self._get_temp_osds(pool, seeds, up,
+                                                     up_primary)
+        return up, up_primary, acting, acting_primary
+
+    def _pg_to_up_acting_uncached(self, pool: PGPool, seeds: np.ndarray):
+        craw, pps = self.pg_to_crush_osds(pool.id, seeds)
+        return self._pipeline_from_crush(pool, seeds, craw, pps)
+
+    def pg_to_up_acting_osds(self, pool_id: int, seeds):
+        """The full pipeline (ref: OSDMap::_pg_to_up_acting_osds).
+
+        seeds: (N,) actual pg seeds in [0, pg_num). Returns
+        (up (N,size), up_primary (N,), acting, acting_primary).
+        """
+        pool = self.pools[pool_id]
+        seeds = np.atleast_1d(np.asarray(seeds, dtype=np.uint32))
+        return self._pg_to_up_acting_uncached(pool, seeds)
+
+    def pg_to_acting_osds(self, pool_id: int, seeds):
+        _, _, acting, acting_primary = self.pg_to_up_acting_osds(pool_id,
+                                                                 seeds)
+        return acting, acting_primary
+
+    def pg_to_acting_primary(self, pool_id: int, seed: int):
+        """Scalar (acting list, acting_primary) for one PG — the
+        data-path op-targeting shape (Objecter _calc_target, mon
+        repair/`osd map`). Served from the epoch-keyed cache, so
+        steady-state client ops never re-enter the mapper.
+
+        The acting list is POSITION-LOSSY: ITEM_NONE holes are
+        filtered out, so for EC pools list index is NOT shard id —
+        callers needing shard positions must use
+        ``pg_to_up_acting_osds`` (which keeps the placeholders)."""
+        _, _, acting, actp = self.pg_to_up_acting_osds(
+            pool_id, [int(seed)])
+        return [int(o) for o in acting[0] if o != ITEM_NONE], \
+            int(actp[0])
+
+    def map_pool(self, pool_id: int):
+        """All PGs of a pool in one call -> (up, up_primary, acting,
+        acting_primary), shape (pg_num, ...)."""
+        pool = self.pools[pool_id]
+        return self.pg_to_up_acting_osds(
+            pool_id, np.arange(pool.pg_num, dtype=np.uint32))
+
+    # -- utilization ------------------------------------------------------
+    def pool_utilization(self, pool_id: int) -> np.ndarray:
+        """PG count per OSD for one pool (the CrushTester aggregate,
+        ref: src/crush/CrushTester.cc test aggregation)."""
+        up, _, _, _ = self.map_pool(pool_id)
+        flat = up[up != ITEM_NONE]
+        return np.bincount(flat, minlength=self.max_osd)
+
+    # -- upmap balancer ----------------------------------------------------
+    def _crush_parents(self) -> dict[int, int]:
+        parents: dict[int, int] = {}
+        for b in self.crush.buckets.values():
+            for child in b.items:
+                parents[child] = b.id
+        return parents
+
+    def _failure_domain_of(self, parents: dict[int, int], osd: int,
+                           fd_type: int) -> int:
+        """Ancestor bucket of `osd` at fd_type (the chooseleaf domain);
+        the osd itself when fd_type is 0/absent."""
+        if fd_type <= 0:
+            return osd
+        node = osd
+        while node in parents:
+            node = parents[node]
+            b = self.crush.buckets.get(node)
+            if b is not None and b.type == fd_type:
+                return node
+        return osd
+
+    def _rule_failure_domain(self, ruleno: int) -> int:
+        """The separation type the rule's choose steps enforce."""
+        from ceph_tpu_torch.crush.types import (
+            OP_CHOOSELEAF_FIRSTN, OP_CHOOSELEAF_INDEP, OP_CHOOSE_FIRSTN,
+            OP_CHOOSE_INDEP)
+        fd = 0
+        for s in self.crush.rules[ruleno].steps:
+            if s.op in (OP_CHOOSELEAF_FIRSTN, OP_CHOOSELEAF_INDEP,
+                        OP_CHOOSE_FIRSTN, OP_CHOOSE_INDEP):
+                fd = max(fd, s.arg2)
+        return fd
+
+    def calc_pg_upmaps(self, pool_ids=None, max_deviation: int = 5,
+                       max_iterations: int = 200) -> int:
+        """Generate pg_upmap_items flattening the PG distribution.
+
+        ref: src/osd/OSDMap.cc OSDMap::calc_pg_upmaps — the mgr
+        balancer's upmap mode. Same shape as upstream: compute per-OSD
+        deviation from the weight-proportional target, then repeatedly
+        move one PG shard from the most-overfull OSD to an underfull one
+        via a pg_upmap_items pair, preferring to DROP an existing upmap
+        entry that feeds the overfull OSD before adding new ones. Every
+        candidate move is validated by remapping the PG through the full
+        pipeline (no duplicate OSDs, no holes, failure-domain separation
+        preserved — upstream delegates that to crush->try_remap_rule).
+
+        Batched twist: placement is computed once per pool with the
+        batched mapper; counts update incrementally per move.
+
+        Returns the number of upmap changes recorded (and applied to this
+        map).
+        """
+        pools = {pid: self.pools[pid]
+                 for pid in (pool_ids or self.pools)}
+        if not pools:
+            return 0
+        parents = self._crush_parents()
+
+        # per-osd weight share: crush weight x reweight (out osds get 0).
+        # A device's crush weight lives in its parent bucket's weights
+        # slot (ref: crush_bucket.weights), not on the device itself.
+        crush_w = np.zeros(self.max_osd, dtype=np.float64)
+        for b in self.crush.buckets.values():
+            for child, w in zip(b.items, b.weights):
+                if 0 <= child < self.max_osd:
+                    crush_w[child] = w / WEIGHT_ONE
+        base_w = np.zeros(self.max_osd, dtype=np.float64)
+        for o in range(self.max_osd):
+            if not self.exists(np.asarray(o)) or self.osd_weight[o] == 0:
+                continue
+            base_w[o] = crush_w[o] * (self.osd_weight[o] / WEIGHT_ONE)
+
+        # Initial placement + per-pg bookkeeping: the pure CRUSH output
+        # per pool is computed ONCE — pg_upmap_items edits never change
+        # CRUSH output, so every candidate-move probe below replays only
+        # the numpy post-CRUSH pipeline over the cached raw row.
+        up_by_pool: dict[int, np.ndarray] = {}
+        craw_by_pool: dict[int, np.ndarray] = {}
+        pps_by_pool: dict[int, np.ndarray] = {}
+        counts = np.zeros(self.max_osd, dtype=np.int64)
+        for pid in pools:
+            pool = pools[pid]
+            seeds = np.arange(pool.pg_num, dtype=np.uint32)
+            craw, pps = self.pg_to_crush_osds(pid, seeds)
+            craw_by_pool[pid] = craw
+            pps_by_pool[pid] = pps
+            up, _, _, _ = self._pipeline_from_crush(pool, seeds, craw,
+                                                    pps)
+            up_by_pool[pid] = up
+            flat = up[up != ITEM_NONE]
+            counts += np.bincount(flat, minlength=self.max_osd)
+        total = int(counts.sum())
+        if total == 0 or base_w.sum() == 0:
+            return 0
+        target = base_w / base_w.sum() * total
+
+        def deviation():
+            dev = counts - target
+            dev[base_w == 0] = 0            # out osds: not balanceable
+            return dev
+
+        def remap_pg(pid, seed):
+            # post-CRUSH pipeline only — reads the MUTATED upmap dicts
+            # against the cached raw row, bit-identical to a full
+            # pg_to_up_acting_osds call
+            sarr = np.asarray([seed], dtype=np.uint32)
+            up, _, _, _ = self._pipeline_from_crush(
+                pools[pid], sarr, craw_by_pool[pid][seed:seed + 1],
+                pps_by_pool[pid][seed:seed + 1])
+            return up[0]
+
+        changes = 0
+        for _ in range(max_iterations):
+            dev = deviation()
+            over = int(np.argmax(dev))
+            # both tails count (upstream fills underfull OSDs from the
+            # most-loaded ones even when no OSD exceeds +max_deviation)
+            if dev[over] <= max_deviation and \
+                    dev.min() >= -max_deviation:
+                break
+            under_order = np.argsort(dev)
+            moved = False
+            # candidate PGs currently holding a shard on `over`
+            for pid, up in up_by_pool.items():
+                pool = pools[pid]
+                fd_type = self._rule_failure_domain(pool.crush_rule)
+                rows = np.flatnonzero((up == over).any(axis=1))
+                for row in rows:
+                    pg = pg_t(pid, int(row))
+                    if pg in self.pg_upmap:
+                        continue    # full override settles the PG; items
+                    pairs = self.pg_upmap_items.get(pg, [])
+                    # prefer reverting an existing remap feeding `over`
+                    reverted = [p for p in pairs if p[1] != over]
+                    if len(reverted) != len(pairs):
+                        if reverted:
+                            self.pg_upmap_items[pg] = reverted
+                        else:
+                            self.pg_upmap_items.pop(pg, None)
+                        new_row = remap_pg(pid, row)
+                    else:
+                        # cheap pre-filters (dup/up/failure-domain) reject
+                        # most candidates in O(1); the full pipeline then
+                        # confirms — in the common case exactly one
+                        # pipeline call per accepted move.
+                        new_row = None
+                        row_domains = {
+                            self._failure_domain_of(parents, int(o),
+                                                    fd_type)
+                            for o in up[row] if o != ITEM_NONE and
+                            o != over}
+                        cur = set(int(o) for o in up[row]
+                                  if o != ITEM_NONE)
+                        for u in under_order:
+                            u = int(u)
+                            if base_w[u] == 0:
+                                continue
+                            if dev[u] >= dev[over] - 1:
+                                break   # ascending: no target improves max
+                            if u in cur or not bool(
+                                    self.is_up(np.asarray(u))):
+                                continue
+                            if self._failure_domain_of(
+                                    parents, u, fd_type) in row_domains:
+                                continue
+                            self.pg_upmap_items[pg] = pairs + [(over, u)]
+                            cand = remap_pg(pid, row)
+                            vals = cand[cand != ITEM_NONE]
+                            if (cand != ITEM_NONE).all() and \
+                                    len(set(vals.tolist())) == len(vals) \
+                                    and u in vals and over not in vals:
+                                new_row = cand
+                                break
+                            # pipeline disagreed: roll back
+                            if pairs:
+                                self.pg_upmap_items[pg] = pairs
+                            else:
+                                self.pg_upmap_items.pop(pg, None)
+                        if new_row is None:
+                            continue
+                    # bookkeeping: update counts with the actual delta
+                    old_row = up[row]
+                    for o in old_row[old_row != ITEM_NONE]:
+                        counts[o] -= 1
+                    for o in new_row[new_row != ITEM_NONE]:
+                        counts[o] += 1
+                    up_by_pool[pid][row] = new_row
+                    changes += 1
+                    moved = True
+                    break
+                if moved:
+                    break
+            if not moved:
+                break
+        if changes:
+            self._dirty()
+        return changes

@@ -1,0 +1,139 @@
+"""Placement-group types and pool metadata: what placement reads.
+
+ref: src/osd/osd_types.{h,cc} (pg_t, pg_pool_t, object_locator_t)
+rebuilt as array-friendly dataclasses: every seed-indexed computation also
+accepts arrays so the whole pool maps in one shot.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ceph_tpu_torch.crush import hash as chash
+from ceph_tpu_torch.osd.str_hash import (
+    CEPH_STR_HASH_RJENKINS, str_hash, str_hash_batch,
+)
+
+POOL_TYPE_REPLICATED = 1  # ref: pg_pool_t::TYPE_REPLICATED
+POOL_TYPE_ERASURE = 3     # ref: pg_pool_t::TYPE_ERASURE
+
+FLAG_HASHPSPOOL = 1 << 2  # ref: pg_pool_t::FLAG_HASHPSPOOL
+
+
+def ceph_stable_mod(x, b, bmask, xp=np):
+    """ref: src/include/ceph_hash.h ceph_stable_mod — the split-aware mod
+    that keeps objects stable while pg_num grows toward a power of two."""
+    if xp is None:  # plain ints
+        return x & bmask if (x & bmask) < b else x & (bmask >> 1)
+    x = xp.asarray(x)
+    return xp.where((x & bmask) < b, x & bmask, x & (bmask >> 1))
+
+
+def calc_mask(n: int) -> int:
+    """pg_num -> pg_num_mask (ref: pg_pool_t::calc_pg_masks)."""
+    if n <= 0:
+        return 0
+    return (1 << (n - 1).bit_length()) - 1
+
+
+@dataclass(frozen=True)
+class pg_t:
+    """ref: osd_types.h struct pg_t (pool id + placement seed)."""
+
+    pool: int
+    seed: int
+
+    def __str__(self) -> str:
+        return f"{self.pool}.{self.seed:x}"
+
+    @classmethod
+    def parse(cls, s: str) -> "pg_t":
+        pool, _, seed = s.partition(".")
+        return cls(int(pool), int(seed, 16))
+
+
+@dataclass(frozen=True)
+class ObjectLocator:
+    """ref: osd_types.h object_locator_t."""
+
+    pool: int
+    key: str = ""
+    nspace: str = ""
+    hash: int = -1  # explicit hash position overrides name hashing
+
+
+@dataclass
+class PGPool:
+    """ref: osd_types.h pg_pool_t — the subset placement consumes."""
+
+    id: int
+    pg_num: int = 64
+    pgp_num: int | None = None
+    type: int = POOL_TYPE_REPLICATED
+    size: int = 3
+    min_size: int = 2
+    crush_rule: int = 0
+    flags: int = FLAG_HASHPSPOOL
+    object_hash: int = CEPH_STR_HASH_RJENKINS
+    erasure_code_profile: str = ""
+    name: str = ""
+    pg_temp_primaries_first: bool = False
+    extra: dict = field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        if self.pgp_num is None:
+            self.pgp_num = self.pg_num
+
+    # -- masks ------------------------------------------------------------
+    @property
+    def pg_num_mask(self) -> int:
+        return calc_mask(self.pg_num)
+
+    @property
+    def pgp_num_mask(self) -> int:
+        return calc_mask(self.pgp_num)
+
+    def is_replicated(self) -> bool:
+        return self.type == POOL_TYPE_REPLICATED
+
+    def is_erasure(self) -> bool:
+        return self.type == POOL_TYPE_ERASURE
+
+    def can_shift_osds(self) -> bool:
+        """Replicated sets compact over holes; EC sets are positional
+        (ref: pg_pool_t::can_shift_osds)."""
+        return self.is_replicated()
+
+    # -- seed math (array-capable) ----------------------------------------
+    def raw_pg_to_pg(self, seeds, xp=np):
+        """Fold raw seeds onto actual pg_num (ref: pg_pool_t::raw_pg_to_pg)."""
+        return ceph_stable_mod(seeds, self.pg_num, self.pg_num_mask, xp=xp)
+
+    def raw_pg_to_pps(self, seeds, xp=np):
+        """Placement seed fed to CRUSH (ref: pg_pool_t::raw_pg_to_pps).
+
+        HASHPSPOOL mixes the pool id through rjenkins so co-sized pools
+        don't stack their PGs on the same OSDs; legacy adds the pool id.
+        """
+        folded = ceph_stable_mod(seeds, self.pgp_num, self.pgp_num_mask,
+                                 xp=xp)
+        if self.flags & FLAG_HASHPSPOOL:
+            if xp is None:
+                return int(chash.hash32_2(np.uint32(folded),
+                                          np.uint32(self.id), xp=np))
+            return chash.hash32_2(folded, xp.full_like(
+                xp.asarray(folded), self.id), xp=xp).astype(xp.uint32)
+        return folded + self.id
+
+    def hash_key(self, key: str | bytes, nspace: str | bytes = "") -> int:
+        """ref: pg_pool_t::hash_key — 0x1f-joined nspace+key."""
+        kb = key.encode() if isinstance(key, str) else key
+        nb = nspace.encode() if isinstance(nspace, str) else nspace
+        data = nb + b"\x1f" + kb if nb else kb
+        return str_hash(self.object_hash, data)
+
+    def hash_keys(self, padded, lengths, xp=np):
+        """Batched hash_key over pre-packed (nspace-joined) name bytes."""
+        return str_hash_batch(self.object_hash, padded, lengths, xp=xp)

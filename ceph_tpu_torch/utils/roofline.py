@@ -9,6 +9,12 @@ The table holds public datasheet figures (NVIDIA H100 Tensor Core GPU
 datasheet): device-memory bandwidth and capacity, and the dense int8
 tensor-core rate. It is keyed on ``torch.cuda.get_device_name()``. These
 are a datasheet's numbers, not measurements.
+
+The INT32 rate is derived, not quoted: the datasheet's non-tensor
+float32 rate (66.9 TFLOP/s SXM, 51.2 PCIe) is SMs x 128 lanes x 2
+(a fused multiply-add) x the boost clock, which gives 1.98 GHz (SXM,
+132 SMs) and 1.755 GHz (PCIe, 114 SMs); a Hopper SM has 64 INT32 lanes
+(the Hopper architecture white paper), so SMs x 64 x clock.
 """
 
 from __future__ import annotations
@@ -22,12 +28,15 @@ class DeviceSpec:
     hbm_bytes_per_s: float      # peak device-memory bandwidth
     hbm_bytes: float            # device-memory capacity
     int8_ops_per_s: float       # dense int8 tensor-core peak, operations/s
+    int32_ops_per_s: float      # 32-bit integer ALU peak, operations/s
 
 
 # Checked in order; the first key contained in the device name wins.
 _SPECS = (
-    ("H100 PCIe", DeviceSpec("H100 PCIe", 2.0e12, 80e9, 1513e12)),
-    ("H100", DeviceSpec("H100 SXM", 3.35e12, 80e9, 1979e12)),
+    ("H100 PCIe", DeviceSpec("H100 PCIe", 2.0e12, 80e9, 1513e12,
+                             114 * 64 * 1.755e9)),
+    ("H100", DeviceSpec("H100 SXM", 3.35e12, 80e9, 1979e12,
+                        132 * 64 * 1.98e9)),
 )
 
 
@@ -40,13 +49,14 @@ def device_spec(device_name: str) -> DeviceSpec | None:
     return None
 
 
-def bound_seconds(bytes_moved: float, ops: float, spec: DeviceSpec) -> tuple[
-        float, str]:
+def bound_seconds(bytes_moved: float, ops: float, spec: DeviceSpec,
+                  ops_per_s: float | None = None) -> tuple[float, str]:
     """The least time the card could take for a function that must move
-    ``bytes_moved`` bytes and do ``ops`` int8-class operations: the larger
-    of the two times, and which one bounds it ("bytes" or "operations")."""
+    ``bytes_moved`` bytes and do ``ops`` operations at ``ops_per_s``
+    (default: the int8 tensor-core rate): the larger of the two times,
+    and which one bounds it ("bytes" or "operations")."""
     t_bytes = bytes_moved / spec.hbm_bytes_per_s
-    t_ops = ops / spec.int8_ops_per_s
+    t_ops = ops / (ops_per_s or spec.int8_ops_per_s)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -55,6 +65,30 @@ def gf_encode_work(B: int, k: int, m: int, C: int) -> tuple[int, int]:
     read each input byte once, write each output byte once; the bit-plane
     form does (8m)(8k) multiply-accumulates (2 operations) per column."""
     return B * (k + m) * C, 2 * 64 * m * k * B * C
+
+
+# 32-bit operations of one straw2 slot evaluation in csrc/crush_straw2.cu,
+# counted with Hopper's three-input add and logic (IADD3, LOP3): each
+# rjenkins mix line (a -= b; a -= c; a ^= c >> k) is 3, a mix 27, hash3
+# 2 + 5 mixes = 137; crush_ln 12; subtracting 2^48 2 (64-bit); the
+# 64-bit division counted as ONE 64-bit operation, 2 (the card has no
+# divider and emulates it in tens of instructions: so this is a floor);
+# the zero-weight test 1; compare and select 3.
+CRUSH_SLOT_OPS = 137 + 12 + 2 + 2 + 1 + 3
+
+
+def crush_straw2_work(level_min_slots, n: int, numrep: int, n_cand: int,
+                      table_bytes: int = 0) -> tuple[int, int]:
+    """(bytes, operations) of one crush_straw2 launch over n lanes: read
+    each seed (4 B) and the map's tables once, write numrep leaves and a
+    bad flag (4 B each); every lane evaluates n_cand candidates, each
+    visiting one row per level, counted at each level's smallest row (so
+    the count is exact on maps whose rows per level are equal, and a
+    floor elsewhere). The is_out hash of reweighted leaves is not
+    counted."""
+    slots = sum(level_min_slots)
+    return (4 * n * (numrep + 2) + table_bytes,
+            n * n_cand * slots * CRUSH_SLOT_OPS)
 
 
 def encode_bound(k: int, m: int, spec: DeviceSpec) -> float:

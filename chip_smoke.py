@@ -6,8 +6,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``ceph_tpu_torch/csrc`` into
-``build/torch_kernels/`` and runs these phases; any failure raises, so
-the script exits non-zero and prints no result:
+``build/torch_kernels/`` (one nvcc per source, all started together) and
+runs these phases; any failure raises, so the script exits non-zero and
+prints no result. The erasure-code path:
 
 1. The main path, at full width: Reed-Solomon k=8 m=3 (reed_sol_van)
    through the plugin registry on CUDA with ``backend=auto``, encode of
@@ -22,8 +23,29 @@ the script exits non-zero and prints no result:
    plain version.
 4. Times (CUDA events) at the flagship shape: the kernel and its plain
    version for encode and decode, the bound, and the port's benchmark.
-5. One JSON line per the kernel table, then the card from nvidia-smi,
-   then the last line ``{"ok": true, "device": {...}}``.
+
+Then CRUSH placement, at full width (``crush_phases``):
+
+6. The main path: ``Mapper`` on the canonical 10,240-OSD map (root -> 20
+   racks -> 640 hosts -> 16 OSDs, straw2, 3-replica chooseleaf host),
+   ``map_pgs`` of 2^21 PGs on CUDA, and the same on the mixed-weight and
+   choose_args maps. Each must run on the ``kernel`` engine, and the
+   crush_straw2 launch count must move.
+7. Checks: all 2^21 lanes (leaves and ``bad``) of each map equal the
+   kernel's plain version on the card; 2,048 PGs spread over the range
+   equal ``mapper_ref``, the scalar spec (in a pool of CPU processes).
+8. The fallback: 4 hosts x 2 OSDs, numrep 4, most OSDs reweighted
+   toward 0: lanes must be flagged, and every lane equals mapper_ref.
+9. Placement: an OSDMap on the canonical map, a size-3 pool of 2^18
+   PGs, two OSDs down, two out, one pg_upmap item; every PG through
+   pg_to_up_acting_osds, 1,024 of them against mapper_ref and the same
+   post-CRUSH pipeline.
+10. Times (CUDA events): the kernel and its plain version at 2^21 PGs,
+   the bound, crush_sweep's mappings/s on the three maps, and crushtool
+   --build --num-osds 10240 --hosts 640 --racks 20 --test over 2^20 PGs.
+
+Last: one JSON line listing both kernels, then the card from
+nvidia-smi, then the last line ``{"ok": true, "device": {...}}``.
 
 It exits with code 2, before any work, when no CUDA device is present.
 """
@@ -31,6 +53,7 @@ It exits with code 2, before any work, when no CUDA device is present.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -42,6 +65,9 @@ SEED = 20261016
 B, K, M, C = 64, 8, 3, 524288          # flagship: 4 MiB objects, k=8 m=3
 ERASED, AVAIL = [0, 1], list(range(2, 2 + K))
 PLAIN_SLICE = 8                        # stripes per plain-version check
+CRUSH_N = 1 << 21                      # PG lanes of the CRUSH main path
+CRUSH_SAMPLE = 2048                    # PGs held against the scalar spec
+PG_NUM = 1 << 18                       # ~100 PG replicas per OSD
 
 
 def require(cond: bool, what: str) -> None:
@@ -106,7 +132,7 @@ def main() -> None:
 
     # -- build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = cuda_build.build(["gf_encode"])
+    logs = cuda_build.build(["gf_encode", "crush_straw2"])
     print(f"build: {time.perf_counter() - t0:.2f} s")
     for src, log in logs.items():
         print(f"[nvcc {src}]\n{log.strip()}")
@@ -214,7 +240,9 @@ def main() -> None:
     ec_benchmark.main(["--workload", "encode", *flagship])
     ec_benchmark.main(["--workload", "decode", "--erasures", "2", *flagship])
 
-    # -- 5. result -------------------------------------------------------------
+    crush = crush_phases(spec)
+
+    # -- result ----------------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "gf_encode",
         "route": "cuda",
@@ -227,11 +255,186 @@ def main() -> None:
         "bound_ms": enc_bound_s * 1e3,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}))
+    }, crush]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+def scalar_rows(job):
+    """mapper_ref.do_rule over seeds, padded to numrep (a worker of the
+    scalar-check pool)."""
+    from ceph_tpu_torch.crush import mapper_ref
+    from ceph_tpu_torch.crush.types import ITEM_NONE
+    m, rule, xs, numrep, weight, cargs = job
+    rows = []
+    for x in xs:
+        got = mapper_ref.do_rule(m, rule, int(x), numrep, weight,
+                                 cargs)[:numrep]
+        rows.append(got + [ITEM_NONE] * (numrep - len(got)))
+    return rows
+
+
+def scalar_map(pool, m, rule, xs, numrep, weight=None, cargs=None):
+    """mapper_ref over ``xs`` in the process pool -> (N, numrep) int64."""
+    xs = [int(x) for x in xs]
+    step = -(-len(xs) // 32)
+    jobs = [(m, rule, xs[i:i + step], numrep, weight, cargs)
+            for i in range(0, len(xs), step)]
+    return np.asarray([r for rows in pool.map(scalar_rows, jobs)
+                       for r in rows], dtype=np.int64)
+
+
+def crush_phases(spec) -> dict:
+    """The CRUSH placement path on the card; returns its kernel record."""
+    from ceph_tpu_torch.bench import crush_sweep, crushtool
+    from ceph_tpu_torch.crush import builder, kernels
+    from ceph_tpu_torch.crush.mapper import Mapper
+    from ceph_tpu_torch.osd.osdmap import OSDMap
+    from ceph_tpu_torch.osd.types import PGPool, pg_t
+    from ceph_tpu_torch.utils import roofline
+
+    variants = ("uniform", "mixed_weight", "choose_args")
+    maps = {v: crush_sweep.VARIANTS[v][0](10240) for v in variants}
+    xs = torch.arange(CRUSH_N, dtype=torch.int64, device="cuda")
+    mappers = {v: Mapper(maps[v], choose_args=crush_sweep.VARIANTS[v][1],
+                         device="cuda") for v in variants}
+    with multiprocessing.get_context("spawn").Pool(8) as pool:
+        # -- 6. the main path ----------------------------------------------
+        torch.cuda.synchronize()
+        kernels.crush_straw2.launches = 0
+        outs, paths = {}, {}
+        for v in variants:
+            outs[v], paths[v] = mappers[v].map_pgs_path(0, xs, 3)
+        torch.cuda.synchronize()
+        launches = kernels.crush_straw2.launches
+        for v in variants:
+            mp = mappers[v]
+            require(paths[v] == mp.mapping_path(0, 3) == mp.last_map_path
+                    == "kernel", f"{v}: engine {paths[v]}, not kernel")
+        require(launches == len(variants),
+                f"crush_straw2 launched {launches} times, want "
+                f"{len(variants)} (one 2^21-lane block per map)")
+        print(f"crush main path: map_pgs of {CRUSH_N} PGs on "
+              f"{', '.join(variants)}; crush_straw2 launches {launches}; "
+              f"flagged lanes "
+              f"{ {v: mappers[v].flagged_lanes for v in variants} }")
+
+        # -- 7. checks -----------------------------------------------------
+        xs32 = xs.to(torch.int32)
+        sample = np.linspace(0, CRUSH_N - 1, CRUSH_SAMPLE).astype(np.int64)
+        worst = 0
+        for v in variants:
+            pt = mappers[v].kernel_plan(0)
+            got, bad = kernels.crush_straw2(pt, xs32, 3)
+            plain, plain_bad = kernels.crush_straw2_plain(pt, xs32, 3)
+            torch.cuda.synchronize()
+            diff = int((got.long() - plain.long()).abs().max())
+            worst = max(worst, diff)
+            require(diff == 0 and torch.equal(bad, plain_bad),
+                    f"{v}: kernel differs from its plain version on "
+                    f"{int((got != plain).any(dim=1).sum())} lanes")
+            cargs = maps[v].choose_args.get(crush_sweep.VARIANTS[v][1])
+            want = scalar_map(pool, maps[v], 0, sample, 3, cargs=cargs)
+            require(np.array_equal(
+                outs[v][torch.as_tensor(sample)].cpu().numpy(), want),
+                    f"{v}: map_pgs differs from mapper_ref")
+            print(f"crush checks: {v}: all {CRUSH_N} lanes equal the plain "
+                  f"version (bad lanes {int(bad.sum())}); {CRUSH_SAMPLE} "
+                  f"PGs equal mapper_ref")
+
+        # -- 8. the fallback -------------------------------------------------
+        small, root = builder.build_hierarchy(4, 2)
+        builder.add_simple_rule(small, root, builder.TYPE_HOST)
+        weight = [0x10000, 0x1000, 0x2000, 0x800, 0x10000, 0x100, 0x3000,
+                  0x10000]
+        mp = Mapper(small, np.asarray(weight), device="cuda")
+        few = np.arange(4096)
+        got = mp.map_pgs(0, few, 4).cpu().numpy()
+        require(mp.mapping_path(0, 4) == "kernel", "fallback map not kernel")
+        require(mp.flagged_lanes > 0, "no lane was flagged")
+        require(np.array_equal(got, scalar_map(pool, small, 0, few, 4,
+                                               weight)),
+                "recomputed lanes differ from mapper_ref")
+        print(f"crush fallback: {mp.flagged_lanes} of {len(few)} lanes "
+              f"flagged and recomputed by the VM; all equal mapper_ref")
+
+        # -- 9. placement ----------------------------------------------------
+        om = OSDMap(crush_sweep.canonical_map(10240), device="cuda")
+        om.add_pool(PGPool(id=1, pg_num=PG_NUM, size=3, crush_rule=0))
+        om.mark_down(17)
+        om.mark_down(4242)
+        om.mark_out(99)
+        om.mark_out(7000)
+        om.pg_upmap_items[pg_t(1, 12345)] = [(0, 1)]
+        seeds = np.arange(PG_NUM, dtype=np.uint32)
+        t0 = time.perf_counter()
+        up, upp, acting, actp = om.pg_to_up_acting_osds(1, seeds)
+        place_s = time.perf_counter() - t0
+        require(up.shape == (PG_NUM, 3) and not np.isin(
+            up, [17, 4242, 99, 7000]).any(), "down/out OSDs were placed")
+        pool_ = om.pools[1]
+        pick = np.unique(np.concatenate([
+            np.linspace(0, PG_NUM - 1, 1023).astype(np.int64), [12345]]))
+        pps = pool_.raw_pg_to_pps(seeds[pick])
+        raw = scalar_map(pool, om.crush, 0, pps, 3,
+                         om._device_weights().tolist()).astype(np.int32)
+        want = om._pipeline_from_crush(pool_, seeds[pick], raw, pps)
+        for a, b in zip((up, upp, acting, actp), want):
+            require(np.array_equal(a[pick], b),
+                    "pg_to_up_acting_osds differs from the scalar pipeline")
+        print(f"placement: {PG_NUM} PGs up/acting in {place_s:.3f} s "
+              f"(host clock); {len(pick)} equal mapper_ref + pipeline")
+
+    # -- 10. times -----------------------------------------------------------
+    pt = mappers["uniform"].kernel_plan(0)
+    ms = events_ms(lambda: kernels.crush_straw2(pt, xs32, 3), 10)
+    plain_ms = events_ms(lambda: kernels.crush_straw2_plain(pt, xs32, 3), 1)
+    plan = pt.plan
+    table_bytes = sum(t.numel() * t.element_size() for t in (
+        pt.row_start, pt.row_size, pt.slot_id, pt.slot_next, pt.slot_w,
+        pt.devw, pt.ln_tables))
+    nbytes, ops = roofline.crush_straw2_work(
+        [lv[0] for lv in plan.level_sizes], CRUSH_N, 3,
+        3 + kernels.SPEC_EXTRA, table_bytes)
+    bound_s, bound_by = roofline.bound_seconds(nbytes, ops, spec,
+                                               spec.int32_ops_per_s)
+    rates = crush_sweep.sweep_rate_variants(10240, CRUSH_N, 3,
+                                            device="cuda",
+                                            variants=variants)
+    tool = crushtool.main(["--build", "--num-osds", "10240", "--hosts",
+                           "640", "--racks", "20", "--test", "--num-rep",
+                           "3", "--min-x", "0", "--max-x", "1048575",
+                           "--show-statistics"])
+    require(tool["path"] == "kernel" and tool["bad_mappings"] == 0,
+            f"crushtool ran on {tool['path']} with "
+            f"{tool['bad_mappings']} bad mappings")
+    print("crush timings: " + json.dumps({
+        "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+        "bound_by": bound_by, "ops": ops, "bytes": nbytes,
+        "int32_ops_per_s": spec.int32_ops_per_s,
+        "kernel_mappings_per_s": CRUSH_N / (ms / 1e3),
+        "sweep": {v: {k: r[k] for k in ("mappings_per_s", "n_pgs",
+                                        "seconds_hi", "path",
+                                        "flagged_lanes")}
+                  for v, r in rates.items()},
+        "crushtool": {k: tool[k] for k in ("total_x", "seconds",
+                                           "mappings_per_second",
+                                           "bad_mappings", "path")}}))
+    return {
+        "name": "crush_straw2",
+        "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/crush_straw2.cu",
+        "replaces": "ceph_tpu/crush/pallas_mapper.py:1211",
+        "launches": launches,
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_s * 1e3,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
 
 
 if __name__ == "__main__":
