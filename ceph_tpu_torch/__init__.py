@@ -7,18 +7,24 @@ imports torch and never jax, nor anything of ``ceph_tpu``.
 - ``ceph_tpu_torch.gf``     GF(2^8) tables (numpy), torch ops, and the
                             hand-written CUDA encode kernel (``kernels``).
 - ``ceph_tpu_torch.ec``     Reed-Solomon erasure coding behind the
-                            ``ErasureCodeInterface`` contract, plugin
-                            registry, profiles.
+                            ``ErasureCodeInterface`` contract, the lrc,
+                            shec and clay plugins, plugin registry,
+                            profiles; the fused checksum+encode
+                            (``crc``), device-resident stripes and the
+                            streaming ingest pipeline.
 - ``ceph_tpu_torch.crush``  CRUSH: map model, hashes, crush_ln, the rule
                             VM (``mapper.Mapper``), the hand-written CUDA
                             straw2 rule kernel (``kernels``), the scalar
                             spec, builder, compiler, tester.
 - ``ceph_tpu_torch.osd``    OSDMap placement (``pg_to_up_acting_osds``),
-                            PG types, object-name hashes.
+                            PG types, object-name hashes, the EC write
+                            and read aggregators.
 - ``ceph_tpu_torch.bench``  ``ceph_erasure_code_benchmark``-compatible CLI,
-                            ``crushtool`` and ``crush_sweep``.
+                            ``crushtool``, ``crush_sweep`` and
+                            ``ec_streaming``.
 - ``ceph_tpu_torch.utils``  Device selection, kernel build, timing,
-                            bounds, perf counters, logging.
+                            bounds, perf counters, logging, the
+                            device-runtime monitor (``devmon``).
 - ``ceph_tpu_torch/csrc``   CUDA sources, built by ``utils.cuda_build``.
 
 Entry points run on CUDA unless the caller asks for the CPU.

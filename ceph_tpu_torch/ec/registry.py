@@ -9,8 +9,9 @@ with in-process registration instead of dlopen.
 profiles and benchmark invocations written for the reference
 (``--plugin jax``, ``--plugin jerasure``) run unchanged. ``isa`` takes the
 reference's fallback branch (no native C++ backend here) and marks the
-instance ``independent=False``. ``lrc``, ``shec``, ``clay`` and ``ref``
-are not registered; asking for them raises the usual "not found".
+instance ``independent=False``. ``lrc``, ``shec`` and ``clay`` are the
+layered plugins; ``ref`` (the native C++ backend) is not registered, and
+asking for it raises the usual "not found".
 """
 
 from __future__ import annotations
@@ -43,10 +44,17 @@ class ErasureCodePluginRegistry:
             return cls._instance
 
     def _register_builtins(self) -> None:
+        from ceph_tpu_torch.ec.clay import ErasureCodeClay
+        from ceph_tpu_torch.ec.lrc import ErasureCodeLrc
+        from ceph_tpu_torch.ec.shec import ErasureCodeShec
+
         self.add("jax", ErasureCodeTorch)
         # Compatibility aliases: same techniques, same parity bytes.
         self.add("jerasure", ErasureCodeTorch)
         self.add("isa", ErasureCodeTorch)
+        self.add("lrc", ErasureCodeLrc)
+        self.add("shec", ErasureCodeShec)
+        self.add("clay", ErasureCodeClay)
 
     def add(self, name: str,
             ctor: Callable[[], ErasureCodeInterface]) -> None:
