@@ -16,12 +16,17 @@ imports torch and never jax, nor anything of ``ceph_tpu``.
                             VM (``mapper.Mapper``), the hand-written CUDA
                             straw2 rule kernel (``kernels``), the scalar
                             spec, builder, compiler, tester.
-- ``ceph_tpu_torch.osd``    OSDMap placement (``pg_to_up_acting_osds``),
-                            PG types, object-name hashes, the EC write
-                            and read aggregators.
+- ``ceph_tpu_torch.osd``    OSDMap placement (``pg_to_up_acting_osds``,
+                            incrementals, the lookup memo), the
+                            OSDMapMapping table kept across epochs, PG
+                            types, object-name hashes, the EC write and
+                            read aggregators.
+- ``ceph_tpu_torch.encoding`` binary codecs of crush maps, osdmaps and
+                            incrementals (ceph_tpu's bytes).
+- ``ceph_tpu_torch.sim``    the churn (rebalance) simulator.
 - ``ceph_tpu_torch.bench``  ``ceph_erasure_code_benchmark``-compatible CLI,
-                            ``crushtool``, ``crush_sweep`` and
-                            ``ec_streaming``.
+                            ``crushtool``, ``crush_sweep``, ``osdmaptool``
+                            and ``ec_streaming``.
 - ``ceph_tpu_torch.utils``  Device selection, kernel build, timing,
                             bounds, perf counters, logging, the
                             device-runtime monitor (``devmon``).

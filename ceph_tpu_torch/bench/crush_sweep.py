@@ -13,6 +13,13 @@ plus its mixed-weight, choose_args and quantized choose_args variants.
     python -m ceph_tpu_torch.bench.crush_sweep --num-pgs 2097152 --variants
 
 Runs on CUDA unless ``--device cpu`` (where the host clock times it).
+
+Each row records the engine the plan promised before the run and the one
+the last sweep ran on. A difference still standing at the end (a kernel
+quarantined or permanently disabled) is a ``path_expected_vs_actual``
+row and a ``path_regressions`` entry; one that healed before the end (a
+bit-exact probe re-promoted the kernel) is a ``path_transient``. On the
+card a kernel failure raises, so only a CPU run can show either.
 """
 
 from __future__ import annotations
@@ -29,6 +36,9 @@ from ceph_tpu_torch.crush.builder import TYPE_HOST
 from ceph_tpu_torch.crush.mapper import Mapper
 from ceph_tpu_torch.crush.types import WEIGHT_ONE, ChooseArg
 from ceph_tpu_torch.utils import device as devsel
+from ceph_tpu_torch.utils.logging import get_logger
+
+log = get_logger("bench")
 
 
 def canonical_map(n_osds: int = 10240):
@@ -114,6 +124,8 @@ def sweep_rate(mapper: Mapper, n_pgs: int, num_rep: int = 3,
                rule: int = 0) -> dict:
     """Mappings/s by the two-size slope: sweeps of n_hi and n_hi / 4
     PGs, each quantised to whole blocks, best of two."""
+    # the engine the plan promises, captured before anything runs
+    expected_path = mapper.mapping_path(rule, num_rep)
     blk = mapper.effective_block(rule, num_rep)
     hi_blocks = max(2, -(-n_pgs // blk))
     lo_blocks = max(1, hi_blocks // 4)
@@ -128,7 +140,8 @@ def sweep_rate(mapper: Mapper, n_pgs: int, num_rep: int = 3,
         per_pg = t_hi / n_hi
         method = "sweep_total"
     platform, kind = devsel.describe(mapper.device)
-    return {
+    actual_path = mapper.last_map_path or expected_path
+    out = {
         "metric": "crush_mappings_per_s",
         "mappings_per_s": 1.0 / per_pg,
         "n_pgs": n_hi,
@@ -138,11 +151,26 @@ def sweep_rate(mapper: Mapper, n_pgs: int, num_rep: int = 3,
         "num_rep": num_rep,
         "method": method,
         "timer": "cuda_events" if platform == "gpu" else "host_clock",
-        "path": mapper.last_map_path,
+        "path": actual_path,
         "flagged_lanes": mapper.flagged_lanes,
         "platform": platform,
         "device": kind,
     }
+    if actual_path != expected_path:
+        healed = (mapper.kernel_quarantine_info() is None and
+                  mapper.mapping_path(rule, num_rep) == expected_path)
+        if healed:
+            out["path_transient"] = \
+                f"{expected_path}->{actual_path} (healed)"
+            log.dout(1, f"CRUSH bench transient degrade: the last sweep "
+                        f"ran {actual_path}, the kernel healed back to "
+                        f"{expected_path} before the end")
+        else:
+            out["path_expected_vs_actual"] = \
+                f"{expected_path}->{actual_path}"
+            log.dout(0, f"CRUSH bench path regression: the plan promised "
+                        f"{expected_path}, the run executed {actual_path}")
+    return out
 
 
 def sweep_rate_variants(n_osds: int = 10240, n_pgs: int = 1 << 21,
@@ -156,6 +184,15 @@ def sweep_rate_variants(n_osds: int = 10240, n_pgs: int = 1 << 21,
         mapper = Mapper(build(n_osds), choose_args=key, device=device)
         out[name] = sweep_rate(mapper, n_pgs, num_rep)
     return out
+
+
+def path_regressions(variants: dict) -> list[str]:
+    """['choose_args: kernel-plain->vm', ...]: every variant row whose
+    promised engine was not the one serving at the end of its run."""
+    return [f"{name}: {row['path_expected_vs_actual']}"
+            for name, row in sorted(variants.items())
+            if isinstance(row, dict)
+            and "path_expected_vs_actual" in row]
 
 
 def main(argv=None) -> dict:

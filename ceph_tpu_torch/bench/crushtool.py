@@ -10,9 +10,10 @@ ref: src/tools/crushtool.cc; the same flags as
         [--show-bad-mappings] [--weight OSD W]... [--device cpu]
 
 ``-c FILE`` compiles a crushmap text file and ``-d`` decompiles to text
-(``ceph_tpu_torch.crush.compiler``). Binary maps (``-i``, and ``-o``
-after ``-c``/``--build``) need the map encoding, which the port does not
-have yet: they exit with a message. The mapping runs on CUDA unless
+(``ceph_tpu_torch.crush.compiler``); ``-i FILE`` loads a binary map and
+``-o FILE`` writes one after ``-c``/``--build``/``-i`` (text after
+``-d``), through ``ceph_tpu_torch.encoding``, byte for byte the format
+of ``ceph_tpu``'s crushtool. The mapping runs on CUDA unless
 ``--device cpu``.
 """
 
@@ -32,9 +33,6 @@ from ceph_tpu_torch.crush.types import (
 
 ALGS = {"straw2": ALG_STRAW2, "uniform": ALG_UNIFORM, "list": ALG_LIST,
         "straw": ALG_STRAW, "tree": ALG_TREE}
-BINARY_MAPS = ("binary crush maps need the map encoding, which the port "
-               "does not have yet (ROADMAP Queue A: native interop); use "
-               "--build or -c FILE")
 
 
 def parse_args(argv=None):
@@ -44,14 +42,14 @@ def parse_args(argv=None):
     ap.add_argument("-c", "--compile", metavar="FILE", default=None,
                     help="compile a crushmap text file")
     ap.add_argument("-i", "--infn", metavar="FILE", default=None,
-                    help="load a binary crushmap (not supported yet)")
+                    help="load a binary crushmap (crushtool -i)")
     ap.add_argument("-d", "--decompile", metavar="FILE", nargs="?",
                     const="", default=None,
-                    help="decompile to crushmap text (from a binary FILE: "
-                         "not supported yet)")
+                    help="decompile to crushmap text (optionally from a "
+                         "binary FILE)")
     ap.add_argument("-o", "--outfn", metavar="FILE", default=None,
-                    help="output file: text after -d (binary: not "
-                         "supported yet)")
+                    help="output file: binary map after -c/--build/-i, "
+                         "text after -d (ref crushtool semantics)")
     ap.add_argument("--num-osds", type=int, default=16)
     ap.add_argument("--hosts", type=int, default=0,
                     help="host count (0 = flat map)")
@@ -101,17 +99,23 @@ def main(argv=None) -> dict:
     if len(sources) > 1 or (sources and args.build):
         raise SystemExit("conflicting input sources: pick ONE of "
                          "--build / -c FILE / -i FILE / -d FILE")
-    if args.infn or args.decompile or \
-            (args.outfn and args.decompile is None):
-        raise SystemExit(BINARY_MAPS)
     if args.compile:
         from ceph_tpu_torch.crush.compiler import compile_crushmap
         with open(args.compile) as f:
             m = compile_crushmap(f.read())
+    elif args.infn or args.decompile:
+        from ceph_tpu_torch.encoding import EncodingError, decode_crush_map
+        path = args.infn or args.decompile
+        with open(path, "rb") as f:
+            blob = f.read()
+        try:
+            m = decode_crush_map(blob)
+        except EncodingError as e:
+            raise SystemExit(f"{path}: not a binary crush map ({e})")
     elif args.build:
         m = build_map(args)
     else:
-        raise SystemExit("pass --build or --compile FILE")
+        raise SystemExit("pass --build, --compile FILE, -i FILE or -d FILE")
     if args.decompile is not None:
         from ceph_tpu_torch.crush.compiler import decompile_crushmap
         text = decompile_crushmap(m)
@@ -120,6 +124,10 @@ def main(argv=None) -> dict:
                 f.write(text)
         else:
             print(text, end="")
+    elif args.outfn:
+        from ceph_tpu_torch.encoding import encode_crush_map
+        with open(args.outfn, "wb") as f:
+            f.write(encode_crush_map(m))
     out: dict = {"max_devices": m.max_devices,
                  "rules": {r.id: r.name for r in m.rules.values()}}
     if args.test:

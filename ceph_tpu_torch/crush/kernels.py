@@ -392,8 +392,11 @@ def crush_straw2(pt: PlanTensors, xs: torch.Tensor, numrep: int):
     if err:
         raise RuntimeError(f"crush_straw2 launch failed: "
                            f"{error_string(err).decode()} (cudaError {err})")
-    crush_straw2.launches += 1
+    _counted.launches += 1
     return leaves.t(), bad.bool()
 
 
 crush_straw2.launches = 0
+# the count lives on this function object, so a wrapper bound to the
+# name ``crush_straw2`` later (a checking hook) does not take it over
+_counted = crush_straw2

@@ -17,8 +17,18 @@ lane axis. Three engines serve a (rule, width):
 - ``scalar``: ``mapper_ref.do_rule`` per seed, for legacy tunables
   (``chooseleaf_stable=0`` or local retries) and rules that set them.
 
-A kernel failure raises: there is no quarantine that falls back to
-another engine (see ROADMAP).
+Kernel quarantine (the reference's, ``ceph_tpu/crush/mapper.py:1088``):
+on the CPU a failure of ``kernel-plain`` benches it: the rule VM serves
+(the same call included) while a re-probe waits on capped exponential
+backoff (``crush_kernel_reprobe_base``/``_max``); a probe runs the kernel
+on 128 PGs and re-promotes it when the output equals the VM's bit for
+bit, and ``crush_kernel_reprobe_disable_after`` consecutive failures make
+the quarantine permanent. A Mapper on the card (``on_card``) never serves
+a failing kernel from another engine: the failure is counted
+(``kernel_exec_failures``, devmon ``quarantine_entries``) and raised to
+the caller. Every call records the engine it ran on and the one expected
+with the process devmon (``utils.devmon``), so a degrade is a counted
+``path_mismatch``.
 
 All arithmetic is int64: 32-bit hash values are carried masked to
 32 bits (``crush.hash``), and the straw2 draw is the exact int64
@@ -26,6 +36,9 @@ truncating division. Entry points run on CUDA unless ``device="cpu"``.
 """
 
 from __future__ import annotations
+
+import itertools
+import time
 
 import numpy as np
 import torch
@@ -46,14 +59,34 @@ from ceph_tpu_torch.crush.types import (
     CrushMap, WEIGHT_ONE,
 )
 from ceph_tpu_torch.utils import device as devsel
+from ceph_tpu_torch.utils.devmon import devmon as _devmon
+from ceph_tpu_torch.utils.logging import get_logger
+from ceph_tpu_torch.utils.perf_counters import PerfCountersBuilder
 
 S64_MIN = -(1 << 63)
 LN_ONE = 1 << 48
 KERNEL_BLOCK = 1 << 21      # PGs per kernel launch
 VM_BLOCK = 1 << 16          # PGs per VM pass (bounds (N, S) temps)
 
+PROBE_PGS = 128             # PGs of a quarantine re-probe
+
 # descent outcomes
 _OK, _SKIP, _EMPTY = 0, 1, 2
+
+PERF = (PerfCountersBuilder("crush_mapper")
+        .add_u64_counter("kernel_exec_failures",
+                         "CRUSH kernel failures (on the CPU they "
+                         "quarantine the kernel; on the card they are "
+                         "raised to the caller)")
+        .add_u64_counter("kernel_probes",
+                         "quarantine re-probe attempts (backoff-paced "
+                         "kernel runs compared bit-exact with the VM)")
+        .add_u64_counter("kernel_repromotes",
+                         "quarantined kernels re-promoted after a "
+                         "bit-exact probe passed")
+        .create_perf_counters())
+
+_MAPPER_TOKEN = itertools.count(1)
 
 
 # ---------------------------------------------------------------------------
@@ -568,6 +601,13 @@ def _as_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
+def on_card(mapper) -> bool:
+    """Whether a Mapper's work runs on a CUDA device. Such work is never
+    handed to another engine when its kernel fails: the failure is
+    counted and raised."""
+    return mapper.device.type == "cuda"
+
+
 class Mapper:
     """Batched CRUSH mapper for one CrushMap on one device.
 
@@ -575,13 +615,16 @@ class Mapper:
         osds = mapper.map_pgs(ruleno, xs, numrep)   # (N, numrep) int32
 
     ``device_weights`` are the per-device 16.16 reweights of is_out
-    (default all in); ``choose_args`` selects a weight-set key."""
+    (default all in); ``choose_args`` selects a weight-set key;
+    ``config`` is a live dict of the ``crush_kernel_reprobe_*`` knobs
+    (default: the process devmon's)."""
 
     def __init__(self, crush_map: CrushMap,
                  device_weights: np.ndarray | None = None,
                  block: int | None = None,
                  choose_args: int | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 config: dict | None = None):
         self.device = devsel.resolve(device)
         self.map = crush_map
         self.packed: PackedMap = pack_map(crush_map)
@@ -593,6 +636,19 @@ class Mapper:
         self.block = block              # None: per engine, see below
         self.last_map_path: str | None = None
         self.flagged_lanes = 0          # kernel lanes recomputed by the VM
+        self._config = config
+        # devmon identity: keys this Mapper's first launches and its
+        # quarantine state
+        self._devmon_token = next(_MAPPER_TOKEN)
+        # Set after a kernel failure: the engine this Mapper promised,
+        # so under devmon_expected_engine=auto every later call keeps
+        # counting a mismatch instead of the baseline re-healing to vm.
+        self._degraded_from: str | None = None
+        # quarantine state machine (CPU only, see the module docstring)
+        self._kernel_ok = True
+        self._quar_state: str | None = None  # quarantined|reprobing|permanent
+        self._quar_failures = 0              # consecutive failures
+        self._quar_next_probe = 0.0          # monotonic deadline
         self.set_device_weights(device_weights)
 
     def set_device_weights(self, device_weights) -> None:
@@ -628,17 +684,146 @@ class Mapper:
             return None
         return numrep
 
+    def _kernel_path(self) -> str:
+        return "kernel" if on_card(self) else "kernel-plain"
+
     def mapping_path(self, ruleno: int, result_max: int) -> str:
         """The engine serving (rule, width): 'kernel' (the CUDA kernel),
         'kernel-plain' (its plain version, on the CPU), 'vm' or
-        'scalar'."""
+        'scalar'. A quarantined kernel-plain leaves 'vm'."""
         if _scalar_reason_of(self.map, self._steps(ruleno)):
             return "scalar"
-        if self._kernel_numrep(ruleno, result_max) is not None:
-            return "kernel" if self.device.type == "cuda" else "kernel-plain"
+        if self._kernel_ok and \
+                self._kernel_numrep(ruleno, result_max) is not None:
+            return self._kernel_path()
         return "vm"
 
-    expected_path = mapping_path
+    def expected_path(self, ruleno: int, result_max: int) -> str:
+        """The engine this Mapper is expected to serve (rule, width) on:
+        the plan's prediction, except that a Mapper whose kernel failed
+        stays pinned to the kernel it promised."""
+        return self._degraded_from or \
+            self.mapping_path(ruleno, result_max)
+
+    # -- kernel quarantine -----------------------------------------------------
+    def _knob(self, name: str, default):
+        """crush_kernel_reprobe_* knobs, read live from this Mapper's
+        config dict or the process devmon's."""
+        cfg = self._config if self._config is not None \
+            else _devmon().config
+        try:
+            return type(default)(cfg.get(name, default))
+        except (TypeError, ValueError):
+            return default
+
+    def _disable_kernel(self, where: str, exc: Exception) -> None:
+        """A kernel failure. On the card it is counted and ``exc`` is
+        raised: no other engine serves the work. On the CPU the kernel is
+        quarantined: the VM serves while a re-probe waits on capped
+        exponential backoff, and after
+        crush_kernel_reprobe_disable_after consecutive failures the
+        quarantine is permanent."""
+        PERF.inc("kernel_exec_failures")
+        dm = _devmon()
+        log = get_logger("crush")
+        what = f"{type(exc).__name__}: {str(exc)[:200]}"
+        if on_card(self):
+            dm.perf.inc("quarantine_entries")
+            log.dout(0, f"CRUSH kernel failed in {where} on the card "
+                        f"({what}); raised to the caller")
+            raise exc
+        self._degraded_from = self._kernel_path()
+        self._kernel_ok = False
+        entering = self._quar_state is None
+        self._quar_failures += 1
+        disable_after = max(
+            1, self._knob("crush_kernel_reprobe_disable_after", 5))
+        if self._quar_failures >= disable_after:
+            self._quar_state = "permanent"
+            self._quar_next_probe = float("inf")
+            log.dout(0, f"CRUSH kernel failed in {where} ({what}): "
+                        f"{self._quar_failures} consecutive failures, "
+                        f"permanently disabled for this Mapper")
+        else:
+            base = self._knob("crush_kernel_reprobe_base", 0.5)
+            cap = self._knob("crush_kernel_reprobe_max", 30.0)
+            backoff = min(base * (2 ** (self._quar_failures - 1)), cap)
+            self._quar_next_probe = time.monotonic() + backoff
+            self._quar_state = "quarantined" if entering else "reprobing"
+            log.dout(0, f"CRUSH kernel failed in {where} ({what}): "
+                        f"quarantined (the VM serves; re-probe in "
+                        f"{backoff:.2f}s, failure "
+                        f"{self._quar_failures}/{disable_after})")
+        if entering:
+            dm.record_quarantine_enter(self._devmon_token, self._quar_state)
+        else:
+            dm.set_quarantine_state(self._devmon_token, self._quar_state)
+
+    def _maybe_reprobe(self, ruleno: int, result_max: int) -> None:
+        """Run one backoff-paced probe when due (at the top of a fresh
+        map_pgs/sweep call, never from the retry after a failure)."""
+        if self._quar_state in (None, "permanent"):
+            return
+        if time.monotonic() < self._quar_next_probe:
+            return
+        self._reprobe(ruleno, result_max)
+
+    def _reprobe(self, ruleno: int, result_max: int) -> None:
+        """One probe: the kernel on PROBE_PGS seeds against the VM, bit
+        for bit. Equal -> re-promote (the quarantine exits and the
+        failure count resets); raise or mismatch -> back to quarantine
+        with doubled backoff."""
+        dm = _devmon()
+        self._kernel_ok = True
+        try:
+            numrep = self._kernel_numrep(ruleno, result_max)
+        except Exception as e:
+            dm.record_probe(False)
+            PERF.inc("kernel_probes")
+            self._disable_kernel("reprobe", e)
+            return
+        if numrep is None:
+            # this (rule, width) never rides the kernel: nothing to judge
+            # here; probe on a kernel-eligible call instead
+            self._kernel_ok = False
+            return
+        PERF.inc("kernel_probes")
+        x = torch.arange(PROBE_PGS, dtype=torch.int64, device=self.device)
+        try:
+            got = self._map_block(ruleno, x, result_max, self._kernel_path())
+            ref = self._vm_map(ruleno, x, result_max)
+            if not torch.equal(got, ref):
+                bad = int((got != ref).sum())
+                raise RuntimeError(
+                    f"probe mismatch: kernel disagrees with the VM on "
+                    f"{bad}/{got.numel()} slots")
+        except Exception as e:
+            dm.record_probe(False)
+            self._disable_kernel("reprobe", e)
+            return
+        dm.record_probe(True)
+        PERF.inc("kernel_repromotes")
+        self._quar_state = None
+        self._quar_failures = 0
+        self._quar_next_probe = 0.0
+        self._degraded_from = None
+        dm.record_quarantine_exit(self._devmon_token)
+        get_logger("crush").dout(
+            0, f"CRUSH kernel re-promoted after quarantine (probe "
+               f"bit-exact against the VM on {PROBE_PGS} PGs, rule "
+               f"{ruleno})")
+
+    def kernel_quarantine_info(self) -> dict | None:
+        """The quarantine state machine's live view, or None when the
+        kernel is healthy."""
+        if self._quar_state is None:
+            return None
+        due = self._quar_next_probe - time.monotonic()
+        return {"state": self._quar_state,
+                "failures": self._quar_failures,
+                "next_probe_in_s": (round(max(due, 0.0), 3)
+                                    if self._quar_state != "permanent"
+                                    else None)}
 
     def rule_is_firstn(self, ruleno: int) -> bool:
         return not any(s.op in (OP_CHOOSE_INDEP, OP_CHOOSELEAF_INDEP)
@@ -686,7 +871,7 @@ class Mapper:
             out[flagged] = self._vm_map(ruleno, x[flagged], result_max)
         return out
 
-    def _map_block(self, ruleno, x, result_max, path):
+    def _engine_map(self, ruleno, x, result_max, path):
         if path == "scalar":
             return self._scalar_map(ruleno, x, result_max)
         if path.startswith("kernel"):
@@ -694,23 +879,56 @@ class Mapper:
                                     self._kernel_numrep(ruleno, result_max))
         return self._vm_map(ruleno, x, result_max)
 
+    def _map_block(self, ruleno, x, result_max, path,
+                   fn_name: str = "crush_map_pgs"):
+        """One block through devmon's chokepoint (first-launch accounting
+        and device fault injection). The key has no width: a CUDA kernel
+        has no per-shape build, and delta re-runs come at ragged widths."""
+        return _devmon().jit_call(
+            fn_name, (path, self._devmon_token, ruleno, result_max),
+            self._engine_map, ruleno, x, result_max, path)
+
+    def _record_path(self, path: str, expected: str | None) -> str:
+        """This call's engine: the ``last_map_path`` mirror, devmon's
+        launch counter and, given an expectation, its path check."""
+        self.last_map_path = path
+        dm = _devmon()
+        dm.record_launch(path)
+        if expected is not None:
+            dm.record_path_check(expected, path)
+        return path
+
     def map_pgs(self, ruleno: int, xs, result_max: int) -> torch.Tensor:
         """crush_do_rule over seeds ``xs`` -> (N, result_max) int32 device
         ids on this Mapper's device (ITEM_NONE past each result)."""
         return self.map_pgs_path(ruleno, xs, result_max)[0]
 
-    def map_pgs_path(self, ruleno: int, xs, result_max: int):
+    def map_pgs_path(self, ruleno: int, xs, result_max: int,
+                     _expected: str | None = None):
         """``map_pgs`` returning ``(out, path)``, ``path`` the engine this
-        call ran on."""
+        call ran on. ``_expected`` is internal: the engine predicted at
+        first entry, carried through the retry after a kernel failure so
+        the degrade records one mismatch against the original plan."""
         x = _seeds(xs, self.device)
+        scalar = _scalar_reason_of(self.map, self._steps(ruleno)) is not None
+        if _expected is None and not scalar:
+            self._maybe_reprobe(ruleno, result_max)
+            _expected = self.expected_path(ruleno, result_max)
         path = self.mapping_path(ruleno, result_max)
         block = self.effective_block(ruleno, result_max)
-        pieces = [self._map_block(ruleno, x[lo:lo + block], result_max, path)
-                  for lo in range(0, x.shape[0], block)]
+        try:
+            pieces = [self._map_block(ruleno, x[lo:lo + block], result_max,
+                                      path)
+                      for lo in range(0, x.shape[0], block)]
+        except Exception as e:
+            if not path.startswith("kernel"):
+                raise
+            self._disable_kernel("map_pgs", e)      # raises on the card
+            return self.map_pgs_path(ruleno, x, result_max,
+                                     _expected=_expected)
         out = torch.cat(pieces) if pieces else torch.full(
             (0, result_max), ITEM_NONE, dtype=torch.int64, device=self.device)
-        self.last_map_path = path
-        return out.to(torch.int32), path
+        return out.to(torch.int32), self._record_path(path, _expected)
 
     def sweep(self, ruleno: int, start_x: int, n: int, result_max: int,
               device_counts_size: int | None = None):
@@ -722,22 +940,35 @@ class Mapper:
         return counts, bad
 
     def sweep_path(self, ruleno: int, start_x: int, n: int,
-                   result_max: int, device_counts_size: int | None = None):
-        """``sweep`` returning ``(counts, bad, path)``."""
+                   result_max: int, device_counts_size: int | None = None,
+                   _expected: str | None = None):
+        """``sweep`` returning ``(counts, bad, path)`` (see map_pgs_path
+        for the per-call path and ``_expected``)."""
         nd = device_counts_size or self.packed.max_devices
+        scalar = _scalar_reason_of(self.map, self._steps(ruleno)) is not None
+        if _expected is None and not scalar:
+            self._maybe_reprobe(ruleno, result_max)
+            _expected = self.expected_path(ruleno, result_max)
         path = self.mapping_path(ruleno, result_max)
         block = self.effective_block(ruleno, result_max)
         firstn = self.rule_is_firstn(ruleno)
         counts = torch.zeros(nd + 1, dtype=torch.int64, device=self.device)
         bad = torch.zeros((), dtype=torch.int64, device=self.device)
-        for lo in range(0, n, block):
-            x = (torch.arange(lo, min(n, lo + block), dtype=torch.int64,
-                              device=self.device) + start_x) & M32
-            w = self._map_block(ruleno, x, result_max, path)
-            live = w != ITEM_NONE
-            flat = torch.where(live & (w < nd), w, nd).reshape(-1)
-            counts += torch.bincount(flat, minlength=nd + 1)
-            if firstn:
-                bad += (live.sum(dim=1) < result_max).sum()
-        self.last_map_path = path
-        return counts[:nd], bad, path
+        try:
+            for lo in range(0, n, block):
+                x = (torch.arange(lo, min(n, lo + block), dtype=torch.int64,
+                                  device=self.device) + start_x) & M32
+                w = self._map_block(ruleno, x, result_max, path,
+                                    "crush_sweep")
+                live = w != ITEM_NONE
+                flat = torch.where(live & (w < nd), w, nd).reshape(-1)
+                counts += torch.bincount(flat, minlength=nd + 1)
+                if firstn:
+                    bad += (live.sum(dim=1) < result_max).sum()
+        except Exception as e:
+            if not path.startswith("kernel"):
+                raise
+            self._disable_kernel("sweep", e)        # raises on the card
+            return self.sweep_path(ruleno, start_x, n, result_max,
+                                   device_counts_size, _expected=_expected)
+        return counts[:nd], bad, self._record_path(path, _expected)

@@ -1,12 +1,22 @@
 """OSDMap: epoch-versioned cluster map + batched PG->OSD placement.
 
-ref: src/osd/OSDMap.{h,cc} (OSDMap); the port of
-``ceph_tpu/osd/osdmap.py``'s placement half. The reference maps one PG
-per call (pg_to_up_acting_osds); here the same pipeline — pps, CRUSH,
+ref: src/osd/OSDMap.{h,cc} (OSDMap, OSDMap::Incremental); the port of
+``ceph_tpu/osd/osdmap.py``. The reference maps one PG per call
+(pg_to_up_acting_osds); here the same pipeline — pps, CRUSH,
 nonexistent-removal, upmap, up-filter, primary affinity, pg_temp — runs
 over an entire seed array at once, with the CRUSH step on the card
 (``crush.mapper.Mapper``) and the sparse overrides (upmap/pg_temp,
 typically a few thousand entries) as host-side numpy scatters.
+
+Two serving layers sit above the pipeline so lookups stop re-entering
+the mapper:
+
+- an epoch-keyed memo for small (scalar) lookups, keyed (pool, seed)
+  and valid for exactly one epoch: any mutation bumps ``epoch`` and the
+  next lookup drops the memo wholesale;
+- an attached :class:`~ceph_tpu_torch.osd.osdmap_mapping.OSDMapMapping`
+  table (``attach_mapping``) serving every lookup at its epoch, bulk and
+  scalar, kept across epochs by delta remap.
 
 ``pg_to_crush_osds`` (pure CRUSH output) and ``_pipeline_from_crush``
 (everything after CRUSH) are split because the two halves invalidate
@@ -14,30 +24,77 @@ differently: up/down flips, primary affinity and the override dicts
 never change CRUSH output, so ``calc_pg_upmaps`` replays only the numpy
 half over cached raw rows.
 
-Not here yet: the epoch-keyed lookup memo and the OSDMapMapping table
-(``osd/osdmap_mapping.py``), the device mesh, and the cluster state the
-placement path never reads (incrementals, service flags, blocklist,
-addresses: the host-only cluster) (ROADMAP Queue A). The
-CRUSH step runs on CUDA unless ``OSDMap(..., device="cpu")``.
+Incrementals (``apply_incremental``) carry every field the reference's
+codec carries, the host-cluster state placement never reads included
+(addresses, up_thru, blocklist, flags, client QoS profiles). Left out:
+the device mesh (``attach_mesh``, ROADMAP Queue A). The CRUSH step runs
+on CUDA unless ``OSDMap(..., device="cpu")``.
 """
 
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass, field
+
 import numpy as np
 
+from ceph_tpu_torch.crush import builder
 from ceph_tpu_torch.crush import hash as chash
 from ceph_tpu_torch.crush.mapper import Mapper
 from ceph_tpu_torch.crush.types import ITEM_NONE, WEIGHT_ONE, CrushMap
 from ceph_tpu_torch.osd.types import ObjectLocator, PGPool, pg_t
+from ceph_tpu_torch.utils.perf_counters import PerfCountersBuilder
 
 MAX_PRIMARY_AFFINITY = 0x10000  # ref: CEPH_OSD_MAX_PRIMARY_AFFINITY
 DEFAULT_PRIMARY_AFFINITY = 0x10000
 
-# osd_state flags (ref: src/osd/OSDMap.h CEPH_OSD_EXISTS / CEPH_OSD_UP).
+# osd_state flags (ref: src/osd/OSDMap.h CEPH_OSD_EXISTS / CEPH_OSD_UP;
+# NEARFULL/FULL mirror the per-OSD fullness state the mon derives from
+# reported statfs against mon_osd_nearfull_ratio / mon_osd_full_ratio).
 STATE_EXISTS = 1
 STATE_UP = 2
+STATE_NEARFULL = 4
+STATE_FULL = 8
+
+# cluster-wide osdmap service flags (ref: src/include/rados.h
+# CEPH_OSDMAP_PAUSERD..NOIN, the `ceph osd set <flag>` surface)
+FLAG_PAUSERD = 1 << 0
+FLAG_PAUSEWR = 1 << 1
+FLAG_FULL = 1 << 2
+FLAG_NOOUT = 1 << 3
+FLAG_NODOWN = 1 << 4
+FLAG_NOUP = 1 << 5
+FLAG_NOIN = 1 << 6
+
+FLAG_NAMES = {
+    "pauserd": FLAG_PAUSERD, "pausewr": FLAG_PAUSEWR,
+    "full": FLAG_FULL, "noout": FLAG_NOOUT, "nodown": FLAG_NODOWN,
+    "noup": FLAG_NOUP, "noin": FLAG_NOIN,
+}
+
+
+def flag_names(flags: int) -> str:
+    """'noout,full'-style rendering (ref: OSDMap::get_flag_string)."""
+    return ",".join(n for n, bit in FLAG_NAMES.items() if flags & bit)
+
 
 _EMPTY_ROWS = np.empty(0, dtype=np.int64)
+
+# mapping-engine counters: lookup-cache traffic and delta-remap volume
+PERF = (PerfCountersBuilder("osdmap")
+        .add_u64_counter("mapping_cache_hits",
+                         "pg lookups served from the epoch cache/table")
+        .add_u64_counter("mapping_cache_misses",
+                         "pg lookups that entered the mapping pipeline")
+        .add_u64_counter("remap_pgs",
+                         "PGs delta-remapped by OSDMapMapping.update")
+        .add_u64_counter("remap_full_sweeps",
+                         "full-pool sweeps by OSDMapMapping.update")
+        .create_perf_counters())
+
+_PG_CACHE_MAX_BATCH = 16       # memo-cache only scalar-ish lookups;
+                               # bulk callers go to the table/pipeline
+_PG_CACHE_MAX_ENTRIES = 1 << 20
 
 
 def _index_overrides(folded: np.ndarray, pgs) -> dict[int, np.ndarray]:
@@ -61,6 +118,43 @@ def _shift_left(rows: np.ndarray) -> np.ndarray:
     return np.take_along_axis(rows, order, axis=1)
 
 
+@dataclass
+class Incremental:
+    """A delta between epochs (ref: OSDMap::Incremental — same role,
+    dict-shaped instead of encoded). Every field of the reference's, so
+    the codec carries them all."""
+
+    epoch: int = 0
+    new_max_osd: int | None = None
+    new_pools: dict[int, PGPool] = field(default_factory=dict)
+    old_pools: list[int] = field(default_factory=list)
+    new_up: list[int] = field(default_factory=list)
+    new_down: list[int] = field(default_factory=list)
+    new_weight: dict[int, int] = field(default_factory=dict)
+    new_primary_affinity: dict[int, int] = field(default_factory=dict)
+    new_pg_temp: dict[pg_t, list[int]] = field(default_factory=dict)
+    new_primary_temp: dict[pg_t, int] = field(default_factory=dict)
+    new_pg_upmap: dict[pg_t, tuple] = field(default_factory=dict)
+    old_pg_upmap: list[pg_t] = field(default_factory=list)
+    new_pg_upmap_items: dict[pg_t, list] = field(default_factory=dict)
+    old_pg_upmap_items: list[pg_t] = field(default_factory=list)
+    new_crush: CrushMap | None = None
+    # daemon addresses published at boot: osd -> (host, port, hb_port)
+    new_addrs: dict[int, tuple] = field(default_factory=dict)
+    # absolute state values (ref: Incremental::new_state, here absolute)
+    new_state: dict[int, int] = field(default_factory=dict)
+    # client entity -> absolute expiry (unix); ref: new_blocklist
+    new_blocklist: dict[str, float] = field(default_factory=dict)
+    old_blocklist: list[str] = field(default_factory=list)
+    # ref: Incremental::new_up_thru
+    new_up_thru: dict[int, int] = field(default_factory=dict)
+    # absolute cluster service-flag value; None = unchanged
+    new_flags: int | None = None
+    # per-entity op QoS profiles: entity -> (reservation, weight, limit)
+    new_client_profiles: dict[str, tuple] = field(default_factory=dict)
+    old_client_profiles: list[str] = field(default_factory=list)
+
+
 class OSDMap:
     """The authoritative placement state at one epoch."""
 
@@ -80,9 +174,32 @@ class OSDMap:
         self.primary_temp: dict[pg_t, int] = {}
         self.pg_upmap: dict[pg_t, tuple] = {}
         self.pg_upmap_items: dict[pg_t, list] = {}
+        # host-cluster state the codec carries and placement never reads
+        self.osd_addrs: dict[int, tuple] = {}     # osd -> (host, port, hb)
+        self.up_thru: dict[int, int] = {}         # osd -> epoch
+        self.blocklist: dict[str, float] = {}     # entity -> expiry (unix)
+        self.flags = 0                            # FLAG_* service flags
+        self.client_profiles: dict[str, tuple] = {}
         self._mappers: dict[int | None, Mapper] = {}
-        # bumped whenever the crush TREE changes (not reweights)
+        # bumped whenever the crush TREE changes (not reweights):
+        # OSDMapMapping keys its topology-change detection on it
         self.crush_version = 1
+        # epoch-keyed scalar memo + optional full-cluster table (module
+        # docstring); the counters are per map and mirrored into PERF
+        self._mapping = None
+        self._pg_cache: dict[tuple[int, int], tuple] = {}
+        self._pg_cache_epoch = self.epoch
+        self.mapping_cache_hits = 0
+        self.mapping_cache_misses = 0
+
+    def test_flag(self, bit: int) -> bool:
+        return bool(self.flags & bit)
+
+    def is_blocklisted(self, name: str, now: float | None = None) -> bool:
+        exp = self.blocklist.get(name)
+        if exp is None:
+            return False
+        return (time.time() if now is None else now) < exp
 
     # -- state predicates (array-capable) ---------------------------------
     def exists(self, osd):
@@ -96,6 +213,12 @@ class OSDMap:
 
     def is_out(self, osd) -> bool:
         return self.osd_weight[osd] == 0
+
+    def is_nearfull(self, osd) -> bool:
+        return bool(self.osd_state[osd] & STATE_NEARFULL)
+
+    def is_full(self, osd) -> bool:
+        return bool(self.osd_state[osd] & STATE_FULL)
 
     # -- mutation (each bumps the epoch; ref: OSDMap::apply_incremental) --
     def _dirty(self, crush_changed: bool = False) -> None:
@@ -154,6 +277,27 @@ class OSDMap:
         self.osd_primary_affinity[osd] = aff
         self._dirty()
 
+    def insert_crush_item(self, osd: int, weight: int,
+                          bucket_id: int) -> None:
+        """create + link an OSD into the CRUSH tree (the `ceph osd crush
+        add` path: CrushWrapper::insert_item)."""
+        if osd >= self.max_osd:
+            self.set_max_osd(osd + 1)
+            self.epoch -= 1
+        self.osd_state[osd] = STATE_EXISTS | STATE_UP
+        self.osd_weight[osd] = WEIGHT_ONE
+        builder.insert_item(self.crush, osd, weight, bucket_id)
+        self.crush.max_devices = max(self.crush.max_devices, self.max_osd)
+        self._dirty(crush_changed=True)
+
+    def remove_crush_item(self, osd: int) -> None:
+        """unlink + mark gone (ref: CrushWrapper::remove_item +
+        OSDMap rm)."""
+        builder.remove_item(self.crush, osd)
+        self.osd_state[osd] = 0
+        self.osd_weight[osd] = 0
+        self._dirty(crush_changed=True)
+
     def set_crush(self, crush: CrushMap) -> None:
         self.crush = crush
         if crush.max_devices > self.max_osd:
@@ -164,6 +308,66 @@ class OSDMap:
         self.pools[pool.id] = pool
         self._dirty()
         return pool
+
+    def apply_incremental(self, inc: Incremental) -> None:
+        """ref: OSDMap::apply_incremental."""
+        if inc.epoch and inc.epoch != self.epoch + 1:
+            raise ValueError(
+                f"incremental epoch {inc.epoch} != {self.epoch + 1}")
+        if inc.new_crush is not None:
+            self.crush = inc.new_crush
+            self._mappers.clear()
+            self.crush_version += 1
+        if inc.new_max_osd is not None:
+            self.set_max_osd(inc.new_max_osd)
+            self.epoch -= 1  # counted once below
+        for pid in inc.old_pools:
+            self.pools.pop(pid, None)
+        self.pools.update(inc.new_pools)
+        for o, st in inc.new_state.items():
+            self.osd_state[o] = st
+        for o in inc.new_up:
+            self.osd_state[o] |= STATE_EXISTS | STATE_UP
+        for o in inc.new_down:
+            self.osd_state[o] &= ~STATE_UP
+        for o, w in inc.new_weight.items():
+            self.osd_weight[o] = w
+        for o, a in inc.new_primary_affinity.items():
+            self.osd_primary_affinity[o] = a
+        for pg, osds in inc.new_pg_temp.items():
+            if osds:
+                self.pg_temp[pg] = list(osds)
+            else:
+                self.pg_temp.pop(pg, None)
+        for pg, p in inc.new_primary_temp.items():
+            if p >= 0:
+                self.primary_temp[pg] = p
+            else:
+                self.primary_temp.pop(pg, None)
+        self.pg_upmap.update(inc.new_pg_upmap)
+        for pg in inc.old_pg_upmap:
+            self.pg_upmap.pop(pg, None)
+        self.pg_upmap_items.update(inc.new_pg_upmap_items)
+        for pg in inc.old_pg_upmap_items:
+            self.pg_upmap_items.pop(pg, None)
+        self.osd_addrs.update(inc.new_addrs)
+        self.up_thru.update(inc.new_up_thru)
+        if inc.new_flags is not None and inc.new_flags >= 0:
+            self.flags = inc.new_flags
+        self.blocklist.update(inc.new_blocklist)
+        for name in inc.old_blocklist:
+            self.blocklist.pop(name, None)
+        self.client_profiles.update(inc.new_client_profiles)
+        for name in inc.old_client_profiles:
+            self.client_profiles.pop(name, None)
+        if inc.new_weight:
+            # the reweights are the only input of a live Mapper that an
+            # incremental changes in place (a new crush or max_osd dropped
+            # the Mappers above); rebuilding them for a state-only epoch
+            # would throw their kernel plans away for nothing
+            for mp in self._mappers.values():
+                mp.set_device_weights(self._device_weights())
+        self.epoch += 1
 
     # -- mapper -----------------------------------------------------------
     def _device_weights(self) -> np.ndarray:
@@ -380,15 +584,71 @@ class OSDMap:
         craw, pps = self.pg_to_crush_osds(pool.id, seeds)
         return self._pipeline_from_crush(pool, seeds, craw, pps)
 
+    def attach_mapping(self, mapping) -> None:
+        """Attach an OSDMapMapping whose table, when at this map's epoch,
+        serves pg_to_up_acting_osds directly (bulk and scalar) without
+        re-entering the mapper."""
+        self._mapping = mapping
+
     def pg_to_up_acting_osds(self, pool_id: int, seeds):
         """The full pipeline (ref: OSDMap::_pg_to_up_acting_osds).
 
         seeds: (N,) actual pg seeds in [0, pg_num). Returns
         (up (N,size), up_primary (N,), acting, acting_primary).
+
+        Served, in order of preference, from (1) the attached
+        OSDMapMapping table when it is at this epoch, (2) the epoch-keyed
+        scalar memo for batches of at most _PG_CACHE_MAX_BATCH seeds,
+        (3) the pipeline. Nothing is served across an epoch bump: the
+        memo is keyed to one epoch and dropped wholesale.
         """
         pool = self.pools[pool_id]
         seeds = np.atleast_1d(np.asarray(seeds, dtype=np.uint32))
-        return self._pg_to_up_acting_uncached(pool, seeds)
+        mp = self._mapping
+        if mp is not None and mp.serves(self, pool_id):
+            self.mapping_cache_hits += len(seeds)
+            PERF.inc("mapping_cache_hits", len(seeds))
+            return mp.lookup(pool_id, seeds)
+        if not len(seeds) or len(seeds) > _PG_CACHE_MAX_BATCH:
+            if len(seeds):
+                self.mapping_cache_misses += len(seeds)
+                PERF.inc("mapping_cache_misses", len(seeds))
+            return self._pg_to_up_acting_uncached(pool, seeds)
+        if self._pg_cache_epoch != self.epoch:
+            self._pg_cache.clear()
+            self._pg_cache_epoch = self.epoch
+        missing = [int(s) for s in seeds
+                   if (pool_id, int(s)) not in self._pg_cache]
+        if missing:
+            if len(self._pg_cache) > _PG_CACHE_MAX_ENTRIES:
+                self._pg_cache.clear()
+                # the flush evicted this batch's hit seeds too
+                missing = [int(s) for s in seeds]
+            self.mapping_cache_misses += len(missing)
+            PERF.inc("mapping_cache_misses", len(missing))
+            u, upp, a, actp = self._pg_to_up_acting_uncached(
+                pool, np.asarray(missing, dtype=np.uint32))
+            for i, s in enumerate(missing):
+                self._pg_cache[(pool_id, s)] = (
+                    tuple(int(o) for o in u[i]), int(upp[i]),
+                    tuple(int(o) for o in a[i]), int(actp[i]))
+        nhit = len(seeds) - len(missing)
+        if nhit:
+            self.mapping_cache_hits += nhit
+            PERF.inc("mapping_cache_hits", nhit)
+        width = max(len(self._pg_cache[(pool_id, int(s))][0])
+                    for s in seeds)
+        up = np.full((len(seeds), width), ITEM_NONE, dtype=np.int32)
+        acting = np.full((len(seeds), width), ITEM_NONE, dtype=np.int32)
+        up_primary = np.empty(len(seeds), dtype=np.int64)
+        acting_primary = np.empty(len(seeds), dtype=np.int64)
+        for i, s in enumerate(seeds):
+            cu, cupp, ca, cactp = self._pg_cache[(pool_id, int(s))]
+            up[i, :len(cu)] = cu
+            acting[i, :len(ca)] = ca
+            up_primary[i] = cupp
+            acting_primary[i] = cactp
+        return up, up_primary, acting, acting_primary
 
     def pg_to_acting_osds(self, pool_id: int, seeds):
         _, _, acting, acting_primary = self.pg_to_up_acting_osds(pool_id,
@@ -398,8 +658,9 @@ class OSDMap:
     def pg_to_acting_primary(self, pool_id: int, seed: int):
         """Scalar (acting list, acting_primary) for one PG — the
         data-path op-targeting shape (Objecter _calc_target, mon
-        repair/`osd map`). Served from the epoch-keyed cache, so
-        steady-state client ops never re-enter the mapper.
+        repair/`osd map`). Served from the attached table or the
+        epoch-keyed memo, so steady-state ops never re-enter the
+        mapper.
 
         The acting list is POSITION-LOSSY: ITEM_NONE holes are
         filtered out, so for EC pools list index is NOT shard id —
@@ -500,9 +761,10 @@ class OSDMap:
             base_w[o] = crush_w[o] * (self.osd_weight[o] / WEIGHT_ONE)
 
         # Initial placement + per-pg bookkeeping: the pure CRUSH output
-        # per pool is computed ONCE — pg_upmap_items edits never change
-        # CRUSH output, so every candidate-move probe below replays only
-        # the numpy post-CRUSH pipeline over the cached raw row.
+        # per pool is computed ONCE (or served from an attached
+        # OSDMapMapping) — pg_upmap_items edits never change CRUSH
+        # output, so every candidate-move probe below replays only the
+        # numpy post-CRUSH pipeline over the cached raw row.
         up_by_pool: dict[int, np.ndarray] = {}
         craw_by_pool: dict[int, np.ndarray] = {}
         pps_by_pool: dict[int, np.ndarray] = {}
@@ -510,7 +772,12 @@ class OSDMap:
         for pid in pools:
             pool = pools[pid]
             seeds = np.arange(pool.pg_num, dtype=np.uint32)
-            craw, pps = self.pg_to_crush_osds(pid, seeds)
+            mtab = self._mapping
+            if mtab is not None and mtab.serves(self, pid):
+                craw = mtab.crush_raw(pid)
+                pps = pool.raw_pg_to_pps(seeds, xp=np)
+            else:
+                craw, pps = self.pg_to_crush_osds(pid, seeds)
             craw_by_pool[pid] = craw
             pps_by_pool[pid] = pps
             up, _, _, _ = self._pipeline_from_crush(pool, seeds, craw,

@@ -81,6 +81,17 @@ class PGPool:
     name: str = ""
     pg_temp_primaries_first: bool = False
     extra: dict = field(default_factory=dict)
+    # Fields placement never reads, carried because the map codec
+    # (``encoding.maps``) encodes them: the pool quotas, the pg_num merge
+    # barrier and the pool's op QoS triple (ref: pg_pool_t
+    # quota_max_bytes/quota_max_objects, pg_num_pending; the mClock pool
+    # profile). 0 = unset.
+    quota_bytes: int = 0
+    quota_objects: int = 0
+    pg_num_pending: int = 0
+    qos_reservation: float = 0.0
+    qos_weight: float = 0.0
+    qos_limit: float = 0.0
 
     def __post_init__(self) -> None:
         if self.pgp_num is None:

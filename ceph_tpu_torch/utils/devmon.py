@@ -2,8 +2,8 @@
 reports through.
 
 The counterpart of ``ceph_tpu/utils/devmon.py``, with the same counter
-names, so the mgr and Prometheus rows match when the cluster is ported.
-Two blind spots it covers:
+names where the engines match, so the mgr and Prometheus rows match when
+the cluster is ported. Three blind spots it covers:
 
 - **first launches**: on JAX a new (function, shape) pair recompiles.
   PyTorch runs eagerly and a CUDA kernel has no per-shape compile, so
@@ -14,17 +14,30 @@ Two blind spots it covers:
   first allocations of that size. The counter keeps its JAX name
   (``jit_compiles``);
 - **unaccounted transfers**: host->device staging and device->host
-  readbacks are counted in bytes.
+  readbacks are counted in bytes;
+- **silent kernel-path degradation**: every CRUSH ``Mapper`` call and
+  every ``OSDMapMapping`` sweep records which engine ran
+  (:meth:`record_launch`) and whether it was the one expected
+  (:meth:`record_path_check`); the ``devmon_expected_engine`` knob of
+  ``config`` pins the deployed expectation, ``auto`` trusts the plan.
+  The Mapper's kernel quarantine reports its entries, exits and probes
+  here (gauges ``quarantined_now``, ``reprobing_now``,
+  ``quarantine_permanent_now``).
+
+Engines take the port's names: ``kernel`` (the CUDA kernel, with its
+plain version ``kernel-plain`` folded in, as ``pallas-interpret`` folds
+into ``pallas``), ``vm`` (the rule VM; ceph_tpu's ``xla``) and
+``scalar``. The launch counters are ``launches_kernel``, ``launches_vm``
+and ``launches_scalar`` (ceph_tpu: ``launches_pallas``, ``launches_xla``,
+``launches_scalar``).
 
 The process singleton (``devmon()``, counter family ``device_runtime``,
-registered in the process collection) is what ``ec.torch_plugin`` and
-``ec.crc`` report through.
+registered in the process collection) is what ``ec.torch_plugin``,
+``ec.crc`` and ``crush.mapper`` report through.
 
-Left out for now: the reference's kernel-path health side (which engine
-served a CRUSH sweep, the expected-vs-actual check, the kernel
-quarantine gauges), which lands with the Mapper's quarantine, and its
-``attach_tracer`` (a ``jit_compile`` span per first call), which needs
-the tracing module.
+Left out for now: ``launches_sharded`` (the multi-device sweep is not
+ported) and ``attach_tracer`` (a ``jit_compile`` span per first call),
+which needs the tracing module.
 """
 
 from __future__ import annotations
@@ -36,6 +49,9 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch.utils.perf_counters import PerfCountersBuilder
+
+# engines a path string can resolve to
+ENGINES = ("kernel", "vm", "scalar")
 
 # warm-set bound: (fn, key) pairs tracked for first-launch detection.
 # Shape churn past this evicts the OLDEST entry only, so a long-running
@@ -98,15 +114,29 @@ def _corrupt_result(out):
     return arr
 
 
+def normalize_engine(path: str | None) -> str:
+    """Collapse a mapping path to its base engine: 'kernel-plain' ->
+    'kernel', a '+...' suffix dropped; '?' for anything else."""
+    if not path:
+        return "?"
+    base = path.split("+", 1)[0]
+    if base.startswith("kernel"):
+        return "kernel"
+    return base if base in ENGINES else "?"
+
+
 class DeviceRuntimeMonitor:
-    """First-launch accounting + transfer gauges.
+    """First-launch accounting + kernel-path health + transfer gauges.
 
     ``register=True`` puts the counter family in the process-wide
-    collection (the ``devmon()`` singleton); other instances pass
-    ``register=False``."""
+    collection (the ``devmon()`` singleton); per-daemon instances pass
+    ``register=False``. ``config`` is the owner's live config dict:
+    ``devmon_expected_engine`` is read per check, and the Mapper reads its
+    ``crush_kernel_reprobe_*`` knobs from the singleton's."""
 
     def __init__(self, name: str = "device_runtime",
-                 register: bool = True):
+                 register: bool = True, config: dict | None = None):
+        self.config = config if config is not None else {}
         self.perf = (
             PerfCountersBuilder(name)
             .add_u64_counter("jit_compiles",
@@ -114,6 +144,21 @@ class DeviceRuntimeMonitor:
                              "function + shape key)")
             .add_time("jit_compile_seconds",
                       "wall seconds spent in first launches")
+            .add_u64_counter("launches_kernel",
+                             "map/sweep launches served by the CRUSH "
+                             "kernel (its plain version included)")
+            .add_u64_counter("launches_vm",
+                             "map/sweep launches served by the rule VM")
+            .add_u64_counter("launches_scalar",
+                             "map/sweep launches served by the scalar "
+                             "spec walk (legacy tunables)")
+            .add_u64_counter("path_checks",
+                             "expected-vs-actual engine checks at "
+                             "Mapper/OSDMapMapping sweep sites")
+            .add_u64_counter("path_mismatch",
+                             "sweeps whose actual engine differed "
+                             "from the expected one (the silent-"
+                             "degradation signal)")
             .add_u64_counter("h2d_bytes",
                              "host->device bytes staged (mapper "
                              "packing, EC pipeline ingest)")
@@ -124,6 +169,29 @@ class DeviceRuntimeMonitor:
             .add_u64("device_bytes_watermark",
                      "largest single staging op seen (gauge, "
                      "monotone max)")
+            .add_u64_counter("quarantine_entries",
+                             "kernel-path quarantine entries (a kernel "
+                             "failure; on the card also counted when "
+                             "the error is raised to the caller)")
+            .add_u64_counter("quarantine_exits",
+                             "kernel-path re-promotions (a bit-exact "
+                             "probe passed and the kernel serves again)")
+            .add_u64_counter("quarantine_probes",
+                             "backoff re-probe attempts against a "
+                             "quarantined kernel")
+            .add_u64_counter("quarantine_probe_failures",
+                             "re-probes that raised or mismatched the "
+                             "serving path bit-exactly")
+            .add_u64("quarantined_now",
+                     "kernels currently quarantined (serving the "
+                     "fallback engine, re-probe pending; gauge)")
+            .add_u64("reprobing_now",
+                     "quarantined kernels past their first failed "
+                     "re-probe (gauge)")
+            .add_u64("quarantine_permanent_now",
+                     "kernels permanently disabled after "
+                     "crush_kernel_reprobe_disable_after consecutive "
+                     "failures (gauge)")
             .add_u64_counter("faults_injected",
                              "device faults fired at the jit_call "
                              "chokepoint")
@@ -137,6 +205,9 @@ class DeviceRuntimeMonitor:
         # fn name -> {count, seconds, last_key, last_seconds}
         self.functions: dict[str, dict] = {}
         self._watermark = 0
+        self.last_mismatch: dict | None = None
+        # quarantine token -> "quarantined"|"reprobing"|"permanent"
+        self._quarantine: dict = {}
 
     # -- first-launch accounting -------------------------------------------
     def jit_call(self, fn_name: str, key, fn, *args):
@@ -200,6 +271,77 @@ class DeviceRuntimeMonitor:
             ent["last_key"] = str(key)[:120]
             ent["last_seconds"] = round(seconds, 6)
 
+    # -- kernel-path health ------------------------------------------------
+    def expected_engine(self, plan_path: str | None) -> str:
+        """The engine this monitor's owner EXPECTS sweeps to run on: the
+        ``devmon_expected_engine`` knob when pinned, else the plan's own
+        prediction (``plan_path``), under which the only possible
+        mismatch is a plan that degraded mid-run."""
+        want = str(self.config.get("devmon_expected_engine", "auto"))
+        if want in ("", "auto"):
+            return normalize_engine(plan_path)
+        return want
+
+    def record_launch(self, path: str | None, n: int = 1) -> None:
+        """Count a map/sweep launch by the engine that actually ran."""
+        eng = normalize_engine(path)
+        if eng in ENGINES:
+            self.perf.inc(f"launches_{eng}", n)
+
+    def record_path_check(self, expected: str | None,
+                          actual: str | None) -> bool:
+        """One expected-vs-actual engine check; returns True on mismatch.
+        Both sides normalize, so 'kernel-plain' == 'kernel'."""
+        e, a = normalize_engine(expected), normalize_engine(actual)
+        self.perf.inc("path_checks")
+        if e == a or e == "?":
+            return False
+        self.perf.inc("path_mismatch")
+        self.last_mismatch = {"expected": e, "actual": a,
+                              "stamp": time.time()}
+        return True
+
+    def record_sweep(self, plan_path: str | None, actual: str | None,
+                     n_launches: int = 1) -> bool:
+        """The per-sweep-site combo: launch counter + expectation check
+        (knob-pinned or plan-trusted)."""
+        self.record_launch(actual, n_launches)
+        return self.record_path_check(
+            self.expected_engine(plan_path), actual)
+
+    # -- kernel quarantine ---------------------------------------------------
+    def set_quarantine_state(self, token, state: str | None) -> None:
+        """Track one kernel owner's quarantine state (keyed by an opaque
+        token: Mappers use their per-incarnation token). ``None`` clears.
+        The three gauges always reflect the live table."""
+        with self._lock:
+            if state is None:
+                self._quarantine.pop(token, None)
+            else:
+                self._quarantine[token] = state
+            states = list(self._quarantine.values())
+        self.perf.set("quarantined_now",
+                      sum(1 for s in states
+                          if s in ("quarantined", "reprobing")))
+        self.perf.set("reprobing_now",
+                      sum(1 for s in states if s == "reprobing"))
+        self.perf.set("quarantine_permanent_now",
+                      sum(1 for s in states if s == "permanent"))
+
+    def record_quarantine_enter(self, token,
+                                state: str = "quarantined") -> None:
+        self.perf.inc("quarantine_entries")
+        self.set_quarantine_state(token, state)
+
+    def record_quarantine_exit(self, token) -> None:
+        self.perf.inc("quarantine_exits")
+        self.set_quarantine_state(token, None)
+
+    def record_probe(self, ok: bool) -> None:
+        self.perf.inc("quarantine_probes")
+        if not ok:
+            self.perf.inc("quarantine_probe_failures")
+
     # -- transfers / memory ------------------------------------------------
     def record_h2d(self, nbytes: int) -> None:
         if nbytes > 0:
@@ -223,13 +365,52 @@ class DeviceRuntimeMonitor:
                 self._watermark = nbytes
         self.perf.set("device_bytes_watermark", self._watermark)
 
+    # -- views -------------------------------------------------------------
+    def mismatch_ratio(self) -> float:
+        d = self.perf.dump()
+        checks = int(d.get("path_checks", 0))
+        return (int(d.get("path_mismatch", 0)) / checks) if checks \
+            else 0.0
+
+    def health_report(self) -> dict[str, int]:
+        """The daemon's ``device_health`` payload: this monitor's
+        cumulative path health merged with the process singleton's
+        first-launch/transfer side and the quarantine gauges (Mappers are
+        process-level). All ints."""
+        d = self.perf.dump()
+        proc = self if self is _singleton else devmon()
+        p = proc.perf.dump() if proc is not self else d
+        return {
+            "checks": int(d.get("path_checks", 0)),
+            "mismatches": int(d.get("path_mismatch", 0)),
+            "launches_kernel": int(d.get("launches_kernel", 0)),
+            "launches_vm": int(d.get("launches_vm", 0)),
+            "launches_scalar": int(d.get("launches_scalar", 0)),
+            "compiles": int(p.get("jit_compiles", 0)),
+            "compile_ms": int(
+                float(p.get("jit_compile_seconds", 0.0)) * 1e3),
+            "h2d_bytes": int(p.get("h2d_bytes", 0)),
+            "d2h_bytes": int(p.get("d2h_bytes", 0)),
+            "quarantined": int(p.get("quarantined_now", 0)),
+            "reprobing": int(p.get("reprobing_now", 0)),
+            "quarantine_permanent": int(
+                p.get("quarantine_permanent_now", 0)),
+            "quarantine_entries": int(p.get("quarantine_entries", 0)),
+            "quarantine_exits": int(p.get("quarantine_exits", 0)),
+        }
+
     def dump(self) -> dict:
         """The ``device`` block / ``device-runtime status`` payload for
         this monitor."""
         out = {
             "engine": engine_name(),
+            "expected_engine": str(
+                self.config.get("devmon_expected_engine", "auto")),
             "counters": self.perf.dump(),
+            "mismatch_ratio": round(self.mismatch_ratio(), 4),
         }
+        if self.last_mismatch:
+            out["last_mismatch"] = dict(self.last_mismatch)
         with self._lock:
             if self.functions:
                 out["compiles_by_fn"] = {

@@ -44,6 +44,35 @@ Then CRUSH placement, at full width (``crush_phases``):
    the bound, crush_sweep's mappings/s on the three maps, and crushtool
    --build --num-osds 10240 --hosts 640 --racks 20 --test over 2^20 PGs.
 
+Then placement across epochs, at full width (``placement_epochs_phase``,
+on the same pool of CPU processes), the crush_straw2 launch count set to
+0 just before each update and read just after:
+
+17. Build: an OSDMap on the canonical 10,240-OSD map with a size-3 pool
+   of 2^18 PGs (rule 0, the kernel) and a k=8 m=3 pool of 2^16 PGs under
+   an ``indep`` host rule (the rule VM, on the card), about 147 PG shards
+   per OSD; ``OSDMapMapping`` builds both tables and is attached.
+18. A seeded stream of 26 ``Incremental``s (down/up, out, reweights down
+   and up, in, pg_temp, primary_temp and pg_upmap_items set and cleared,
+   primary affinity, one crush bucket-weight edit) through
+   ``apply_incremental`` + ``update``. Each update must take its kind's
+   path (no full sweep for a state, override or weight decrease; both
+   pools re-swept for an increase or the crush edit); the rows it touched
+   and 4,096 rows per pool equal a from-scratch sweep; the whole table
+   does at the first, middle and last epoch; at the last, 1,024 PGs per
+   pool equal ``mapper_ref`` + the post-CRUSH pipeline. Every
+   crush_straw2 launch of the phase equals crush_straw2_plain on the same
+   plan and lanes (a checking hook around the wrapper).
+19. The memo: 1,000 scalar lookups at the attached epoch come from the
+   table (``mapping_cache_hits`` + 1,000, no launch); after one more
+   incremental with no update, lookups miss and equal a fresh sweep.
+20. Health: ``path_mismatch`` and ``quarantine_entries`` 0, no Mapper
+   quarantined.
+21. ``osdmaptool --createsimple 10240 --pg-num 262144 --test-map-pgs
+   --churn 4 --export F``, then ``--mapfn F``: the distribution and the
+   bytes survive the round trip; ``crushtool -i``/``-o`` round-trips the
+   canonical map byte for byte. One ``placement_epochs`` JSON line.
+
 Then the OSD's erasure-code data plane, at full width (k=8 m=3,
 ``reed_sol_van``; ``ec_plane_phases``), each path driven with the
 gf_encode launch count set to 0 just before it and read just after:
@@ -102,6 +131,18 @@ PLAIN_SLICE = 8                        # stripes per plain-version check
 CRUSH_N = 1 << 21                      # PG lanes of the CRUSH main path
 CRUSH_SAMPLE = 2048                    # PGs held against the scalar spec
 PG_NUM = 1 << 18                       # ~100 PG replicas per OSD
+EC_PG_NUM = 1 << 16                    # the k=8 m=3 pool of the epochs phase
+EPOCH_SAMPLE = 4096                    # rows per pool checked every epoch
+SCALAR_SAMPLE = 1024                   # PGs per pool against mapper_ref
+MEMO_LOOKUPS = 1000
+TABLES = ("craw", "up", "up_primary", "acting", "acting_primary")
+# the placement-epochs stream: every kind of map change, each victim
+# revived before the end except the last one
+EPOCH_KINDS = ("down", "pg_temp", "out", "affinity", "upmap", "reweight",
+               "primary_temp", "down2", "pg_temp2", "up", "in", "upmap2",
+               "out2", "crush", "pg_temp_rm", "upmap_rm", "primary_temp_rm",
+               "affinity_rm", "reweight_in", "up2", "in2", "pg_temp2_rm",
+               "upmap2_rm", "down3", "out3", "reweight_half")
 N_OPS, OP_STRIPES, OP_C = 256, 32, 4096   # ec_streaming production shape
 STREAM_OPS = 16                        # ops per streamed batch (16 MiB)
 SCRUB_ROWS = 4096                      # rows of the scrub CRC job
@@ -279,7 +320,12 @@ def main() -> None:
     ec_benchmark.main(["--workload", "encode", *flagship])
     ec_benchmark.main(["--workload", "decode", "--erasures", "2", *flagship])
 
-    crush = crush_phases(spec)
+    with multiprocessing.get_context("spawn").Pool(8) as pool:
+        crush = crush_phases(spec, pool)
+        placement_launches = placement_epochs_phase(card, pool)
+    crush["launches_by_path"] = {"crush_main": crush["launches"],
+                                 "placement_epochs": placement_launches}
+    crush["launches"] += placement_launches
     by_path = {"encode_decode": launches}
     plane_launches, err_plane = ec_plane_phases(ec, enc_bm, dec_bm, card,
                                                 spec)
@@ -598,8 +644,9 @@ def scalar_map(pool, m, rule, xs, numrep, weight=None, cargs=None):
                        for r in rows], dtype=np.int64)
 
 
-def crush_phases(spec) -> dict:
-    """The CRUSH placement path on the card; returns its kernel record."""
+def crush_phases(spec, pool) -> dict:
+    """The CRUSH placement path on the card (``pool``: the mapper_ref
+    worker processes); returns its kernel record."""
     from ceph_tpu_torch.bench import crush_sweep, crushtool
     from ceph_tpu_torch.crush import builder, kernels
     from ceph_tpu_torch.crush.mapper import Mapper
@@ -612,92 +659,91 @@ def crush_phases(spec) -> dict:
     xs = torch.arange(CRUSH_N, dtype=torch.int64, device="cuda")
     mappers = {v: Mapper(maps[v], choose_args=crush_sweep.VARIANTS[v][1],
                          device="cuda") for v in variants}
-    with multiprocessing.get_context("spawn").Pool(8) as pool:
-        # -- 6. the main path ----------------------------------------------
+    # -- 6. the main path --------------------------------------------------
+    torch.cuda.synchronize()
+    kernels.crush_straw2.launches = 0
+    outs, paths = {}, {}
+    for v in variants:
+        outs[v], paths[v] = mappers[v].map_pgs_path(0, xs, 3)
+    torch.cuda.synchronize()
+    launches = kernels.crush_straw2.launches
+    for v in variants:
+        mp = mappers[v]
+        require(paths[v] == mp.mapping_path(0, 3) == mp.last_map_path
+                == "kernel", f"{v}: engine {paths[v]}, not kernel")
+    require(launches == len(variants),
+            f"crush_straw2 launched {launches} times, want "
+            f"{len(variants)} (one 2^21-lane block per map)")
+    print(f"crush main path: map_pgs of {CRUSH_N} PGs on "
+          f"{', '.join(variants)}; crush_straw2 launches {launches}; "
+          f"flagged lanes "
+          f"{ {v: mappers[v].flagged_lanes for v in variants} }")
+
+    # -- 7. checks ---------------------------------------------------------
+    xs32 = xs.to(torch.int32)
+    sample = np.linspace(0, CRUSH_N - 1, CRUSH_SAMPLE).astype(np.int64)
+    worst = 0
+    for v in variants:
+        pt = mappers[v].kernel_plan(0)
+        got, bad = kernels.crush_straw2(pt, xs32, 3)
+        plain, plain_bad = kernels.crush_straw2_plain(pt, xs32, 3)
         torch.cuda.synchronize()
-        kernels.crush_straw2.launches = 0
-        outs, paths = {}, {}
-        for v in variants:
-            outs[v], paths[v] = mappers[v].map_pgs_path(0, xs, 3)
-        torch.cuda.synchronize()
-        launches = kernels.crush_straw2.launches
-        for v in variants:
-            mp = mappers[v]
-            require(paths[v] == mp.mapping_path(0, 3) == mp.last_map_path
-                    == "kernel", f"{v}: engine {paths[v]}, not kernel")
-        require(launches == len(variants),
-                f"crush_straw2 launched {launches} times, want "
-                f"{len(variants)} (one 2^21-lane block per map)")
-        print(f"crush main path: map_pgs of {CRUSH_N} PGs on "
-              f"{', '.join(variants)}; crush_straw2 launches {launches}; "
-              f"flagged lanes "
-              f"{ {v: mappers[v].flagged_lanes for v in variants} }")
+        diff = int((got.long() - plain.long()).abs().max())
+        worst = max(worst, diff)
+        require(diff == 0 and torch.equal(bad, plain_bad),
+                f"{v}: kernel differs from its plain version on "
+                f"{int((got != plain).any(dim=1).sum())} lanes")
+        cargs = maps[v].choose_args.get(crush_sweep.VARIANTS[v][1])
+        want = scalar_map(pool, maps[v], 0, sample, 3, cargs=cargs)
+        require(np.array_equal(
+            outs[v][torch.as_tensor(sample)].cpu().numpy(), want),
+                f"{v}: map_pgs differs from mapper_ref")
+        print(f"crush checks: {v}: all {CRUSH_N} lanes equal the plain "
+              f"version (bad lanes {int(bad.sum())}); {CRUSH_SAMPLE} "
+              f"PGs equal mapper_ref")
 
-        # -- 7. checks -----------------------------------------------------
-        xs32 = xs.to(torch.int32)
-        sample = np.linspace(0, CRUSH_N - 1, CRUSH_SAMPLE).astype(np.int64)
-        worst = 0
-        for v in variants:
-            pt = mappers[v].kernel_plan(0)
-            got, bad = kernels.crush_straw2(pt, xs32, 3)
-            plain, plain_bad = kernels.crush_straw2_plain(pt, xs32, 3)
-            torch.cuda.synchronize()
-            diff = int((got.long() - plain.long()).abs().max())
-            worst = max(worst, diff)
-            require(diff == 0 and torch.equal(bad, plain_bad),
-                    f"{v}: kernel differs from its plain version on "
-                    f"{int((got != plain).any(dim=1).sum())} lanes")
-            cargs = maps[v].choose_args.get(crush_sweep.VARIANTS[v][1])
-            want = scalar_map(pool, maps[v], 0, sample, 3, cargs=cargs)
-            require(np.array_equal(
-                outs[v][torch.as_tensor(sample)].cpu().numpy(), want),
-                    f"{v}: map_pgs differs from mapper_ref")
-            print(f"crush checks: {v}: all {CRUSH_N} lanes equal the plain "
-                  f"version (bad lanes {int(bad.sum())}); {CRUSH_SAMPLE} "
-                  f"PGs equal mapper_ref")
+    # -- 8. the fallback -----------------------------------------------------
+    small, root = builder.build_hierarchy(4, 2)
+    builder.add_simple_rule(small, root, builder.TYPE_HOST)
+    weight = [0x10000, 0x1000, 0x2000, 0x800, 0x10000, 0x100, 0x3000,
+              0x10000]
+    mp = Mapper(small, np.asarray(weight), device="cuda")
+    few = np.arange(4096)
+    got = mp.map_pgs(0, few, 4).cpu().numpy()
+    require(mp.mapping_path(0, 4) == "kernel", "fallback map not kernel")
+    require(mp.flagged_lanes > 0, "no lane was flagged")
+    require(np.array_equal(got, scalar_map(pool, small, 0, few, 4,
+                                           weight)),
+            "recomputed lanes differ from mapper_ref")
+    print(f"crush fallback: {mp.flagged_lanes} of {len(few)} lanes "
+          f"flagged and recomputed by the VM; all equal mapper_ref")
 
-        # -- 8. the fallback -------------------------------------------------
-        small, root = builder.build_hierarchy(4, 2)
-        builder.add_simple_rule(small, root, builder.TYPE_HOST)
-        weight = [0x10000, 0x1000, 0x2000, 0x800, 0x10000, 0x100, 0x3000,
-                  0x10000]
-        mp = Mapper(small, np.asarray(weight), device="cuda")
-        few = np.arange(4096)
-        got = mp.map_pgs(0, few, 4).cpu().numpy()
-        require(mp.mapping_path(0, 4) == "kernel", "fallback map not kernel")
-        require(mp.flagged_lanes > 0, "no lane was flagged")
-        require(np.array_equal(got, scalar_map(pool, small, 0, few, 4,
-                                               weight)),
-                "recomputed lanes differ from mapper_ref")
-        print(f"crush fallback: {mp.flagged_lanes} of {len(few)} lanes "
-              f"flagged and recomputed by the VM; all equal mapper_ref")
-
-        # -- 9. placement ----------------------------------------------------
-        om = OSDMap(crush_sweep.canonical_map(10240), device="cuda")
-        om.add_pool(PGPool(id=1, pg_num=PG_NUM, size=3, crush_rule=0))
-        om.mark_down(17)
-        om.mark_down(4242)
-        om.mark_out(99)
-        om.mark_out(7000)
-        om.pg_upmap_items[pg_t(1, 12345)] = [(0, 1)]
-        seeds = np.arange(PG_NUM, dtype=np.uint32)
-        t0 = time.perf_counter()
-        up, upp, acting, actp = om.pg_to_up_acting_osds(1, seeds)
-        place_s = time.perf_counter() - t0
-        require(up.shape == (PG_NUM, 3) and not np.isin(
-            up, [17, 4242, 99, 7000]).any(), "down/out OSDs were placed")
-        pool_ = om.pools[1]
-        pick = np.unique(np.concatenate([
-            np.linspace(0, PG_NUM - 1, 1023).astype(np.int64), [12345]]))
-        pps = pool_.raw_pg_to_pps(seeds[pick])
-        raw = scalar_map(pool, om.crush, 0, pps, 3,
-                         om._device_weights().tolist()).astype(np.int32)
-        want = om._pipeline_from_crush(pool_, seeds[pick], raw, pps)
-        for a, b in zip((up, upp, acting, actp), want):
-            require(np.array_equal(a[pick], b),
-                    "pg_to_up_acting_osds differs from the scalar pipeline")
-        print(f"placement: {PG_NUM} PGs up/acting in {place_s:.3f} s "
-              f"(host clock); {len(pick)} equal mapper_ref + pipeline")
+    # -- 9. placement --------------------------------------------------------
+    om = OSDMap(crush_sweep.canonical_map(10240), device="cuda")
+    om.add_pool(PGPool(id=1, pg_num=PG_NUM, size=3, crush_rule=0))
+    om.mark_down(17)
+    om.mark_down(4242)
+    om.mark_out(99)
+    om.mark_out(7000)
+    om.pg_upmap_items[pg_t(1, 12345)] = [(0, 1)]
+    seeds = np.arange(PG_NUM, dtype=np.uint32)
+    t0 = time.perf_counter()
+    up, upp, acting, actp = om.pg_to_up_acting_osds(1, seeds)
+    place_s = time.perf_counter() - t0
+    require(up.shape == (PG_NUM, 3) and not np.isin(
+        up, [17, 4242, 99, 7000]).any(), "down/out OSDs were placed")
+    pool_ = om.pools[1]
+    pick = np.unique(np.concatenate([
+        np.linspace(0, PG_NUM - 1, 1023).astype(np.int64), [12345]]))
+    pps = pool_.raw_pg_to_pps(seeds[pick])
+    raw = scalar_map(pool, om.crush, 0, pps, 3,
+                     om._device_weights().tolist()).astype(np.int32)
+    want = om._pipeline_from_crush(pool_, seeds[pick], raw, pps)
+    for a, b in zip((up, upp, acting, actp), want):
+        require(np.array_equal(a[pick], b),
+                "pg_to_up_acting_osds differs from the scalar pipeline")
+    print(f"placement: {PG_NUM} PGs up/acting in {place_s:.3f} s "
+          f"(host clock); {len(pick)} equal mapper_ref + pipeline")
 
     # -- 10. times -----------------------------------------------------------
     pt = mappers["uniform"].kernel_plan(0)
@@ -747,6 +793,487 @@ def crush_phases(spec) -> dict:
         "bound_by": bound_by,
         "library_ms": None,
     }
+
+
+class LaunchLog:
+    """A checking hook around ``kernels.crush_straw2``: every launch is
+    timed with CUDA events and, once ``drain`` runs, held against
+    ``crush_straw2_plain`` on the same plan and lanes (after the timed
+    windows, so the check costs the updates nothing). Launches made while
+    ``main`` is set belong to the main path."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.real = kernels.crush_straw2
+        self.main = False
+        # osdmaptool's maps have a 2,560-slot root level, which makes the
+        # plain version ~40x dearer per lane: with ``sample`` set, the
+        # first launch is checked on every lane, the later ones on every
+        # 16th
+        self.sample = False
+        self.full_done = False
+        self.pending = []
+        self.main_lanes, self.main_ms, self.checked = [], 0.0, 0
+        self.other = {}         # drain label -> [(lanes, ms)] off the path
+        self.worst = 0
+
+    def __enter__(self):
+        self.kernels.crush_straw2 = self.launch
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels.crush_straw2 = self.real
+
+    def launch(self, pt, xs, numrep):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        leaves, bad = self.real(pt, xs, numrep)
+        end.record()
+        self.pending.append((pt, xs.clone(), numrep, leaves.clone(),
+                             bad.clone(), start, end, self.main))
+        return leaves, bad
+
+    def drain(self, what: str) -> None:
+        """Check every pending launch against the plain version."""
+        for pt, xs, numrep, leaves, bad, start, end, main in self.pending:
+            end.synchronize()
+            if main:
+                self.main_lanes.append(int(xs.shape[0]))
+                self.main_ms += start.elapsed_time(end)
+            else:
+                self.other.setdefault(what, []).append(
+                    (int(xs.shape[0]), start.elapsed_time(end)))
+            lanes = slice(None)
+            if self.sample and self.full_done:
+                lanes = slice(None, None, 16)
+            self.full_done |= self.sample
+            width = max(lv[1] for lv in pt.plan.level_sizes)
+            chunk = min(1 << 16, max(1024, (1 << 27) //
+                                     (width * (numrep + 2))))
+            plain, plain_bad = self.kernels.crush_straw2_plain(
+                pt, xs[lanes].contiguous(), numrep, chunk=chunk)
+            diff = int((leaves[lanes].long() - plain.long()).abs().max()) \
+                if plain.numel() else 0
+            self.worst = max(self.worst, diff)
+            require(diff == 0 and torch.equal(bad[lanes], plain_bad),
+                    f"{what}: a crush_straw2 launch of {xs.shape[0]} lanes "
+                    f"differs from its plain version")
+            self.checked += 1
+        self.pending.clear()
+
+
+def _kind_parts(kind: str) -> tuple[str, str, bool]:
+    """'pg_temp2_rm' -> ('pg_temp', '2', True): the change, which victim
+    or pool it names (pool 2 for '2'), and whether it clears one."""
+    rm = kind.endswith("_rm")
+    name = kind[:-3] if rm else kind
+    tag = name[-1] if name[-1] in "23" else ""
+    return name.rstrip("23"), tag, rm
+
+
+def _epoch_incremental(kind, om, mm, rng, st):
+    """The Incremental of one EPOCH_KINDS step, from the seeded rng and
+    the live table (``st`` carries the victims and overrides between
+    steps)."""
+    from ceph_tpu_torch.crush import builder
+    from ceph_tpu_torch.crush.types import (WEIGHT_ONE,
+                                            crush_map_from_state,
+                                            crush_map_state)
+    from ceph_tpu_torch.osd.osdmap import Incremental
+    from ceph_tpu_torch.osd.types import pg_t
+
+    inc = Incremental(epoch=om.epoch + 1)
+    base, tag, rm = _kind_parts(kind)
+    pid = 2 if tag == "2" else 1
+
+    def fresh_osd():
+        while True:
+            o = int(rng.integers(0, om.max_osd))
+            if o not in st.values():
+                return o
+    if base == "down":
+        st["v" + tag] = fresh_osd()
+        inc.new_down.append(st["v" + tag])
+    elif base == "up":
+        inc.new_up.append(st["v" + tag])
+    elif base == "out":
+        inc.new_weight[st["v" + tag]] = 0
+    elif base == "in":
+        inc.new_weight[st["v" + tag]] = WEIGHT_ONE
+    elif base == "reweight":
+        st["r"] = fresh_osd()
+        inc.new_weight[st["r"]] = WEIGHT_ONE // 3
+    elif base == "reweight_in":
+        inc.new_weight[st["r"]] = WEIGHT_ONE
+    elif base == "reweight_half":
+        inc.new_weight[fresh_osd()] = WEIGHT_ONE // 2
+    elif base == "affinity":
+        if not rm:
+            st["a"] = fresh_osd()
+        inc.new_primary_affinity[st["a"]] = 0x10000 if rm else 0
+    elif base == "pg_temp":
+        pg = pg_t(pid, 7 + pid)
+        inc.new_pg_temp[pg] = [] if rm else [
+            int(o) for o in rng.choice(om.max_osd, om.pools[pid].size,
+                                       replace=False)]
+    elif base == "primary_temp":
+        pg = pg_t(1, 2024)
+        inc.new_primary_temp[pg] = -1 if rm else \
+            int(mm._pools[1].up[2024][-1])
+    elif base == "upmap":
+        pg = pg_t(pid, 123 + pid)
+        if rm:
+            inc.old_pg_upmap_items.append(pg)
+        else:
+            inc.new_pg_upmap_items[pg] = [
+                (int(mm._pools[pid].up[pg.seed][0]), fresh_osd())]
+    elif base == "crush":
+        edited = crush_map_from_state(crush_map_state(om.crush))
+        st["c"] = fresh_osd()
+        builder.adjust_item_weight(edited, st["c"], 2 * WEIGHT_ONE)
+        inc.new_crush = edited
+    else:
+        raise ValueError(kind)
+    return inc
+
+
+def epoch_breakdown(om, mm, log, rng) -> dict:
+    """The parts of an epoch update timed apart on the live map: the
+    reweight's Mapper refresh and plan rebuild, the ragged re-run of a
+    decrease on each engine, the post-CRUSH pipeline over those rows and
+    over a whole pool, the VM over the whole k=8 m=3 pool, and the crush
+    digest. Launches here are off the main path (checked, not counted)."""
+    from ceph_tpu_torch.osd.osdmap_mapping import OSDMapMapping
+
+    def host(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    mp = om.serving_mapper(1)
+    _, refresh_s = host(lambda: mp.set_device_weights(om._device_weights()))
+    _, plan_s = host(lambda: mp.kernel_plan(0))
+    out = {"mapper_refresh_s": refresh_s, "plan_build_s": plan_s}
+    osd = int(rng.integers(0, om.max_osd))
+    for pid, p in om.pools.items():
+        t = mm._pools[pid]
+        rows = np.flatnonzero((t.craw == osd).any(axis=1))
+        seeds = rows.astype(np.uint32)
+        n_other = len(log.other.get("breakdown", []))
+        (craw, pps), crush_s = host(lambda: om.pg_to_crush_osds(pid, seeds))
+        _, pipe_s = host(lambda: om._pipeline_from_crush(p, seeds, craw,
+                                                         pps))
+        every = np.arange(p.pg_num, dtype=np.uint32)
+        _, full_pipe_s = host(lambda: om._pipeline_from_crush(
+            p, every, t.craw, t.pps))
+        rec = {"rows": len(rows), "crush_s": crush_s, "pipeline_s": pipe_s,
+               "full_pipeline_s": full_pipe_s,
+               "engine": mp.mapping_path(p.crush_rule, p.size)}
+        if rec["engine"] == "vm":
+            _, rec["full_vm_s"] = host(lambda: om.pg_to_crush_osds(pid,
+                                                                   every))
+        log.drain("breakdown")
+        rec["kernel_ms"] = sum(ms for _, ms in
+                               log.other["breakdown"][n_other:]) \
+            if rec["engine"] == "kernel" else None
+        out[f"pool{pid}"] = rec
+    _, out["crush_digest_s"] = host(lambda: OSDMapMapping._digest(om))
+    return out
+
+
+def placement_epochs_phase(card: str, pool) -> int:
+    """Placement across epochs on the card (phases 17-21): the
+    OSDMapMapping table kept by delta remap over a seeded incremental
+    stream, the lookup memo, osdmaptool and crushtool. Returns the
+    crush_straw2 launches of the main path; any failed check raises."""
+    import os
+    import tempfile
+
+    from ceph_tpu_torch.bench import crush_sweep, crushtool, osdmaptool
+    from ceph_tpu_torch.crush import builder, kernels
+    from ceph_tpu_torch.encoding import encode_crush_map
+    from ceph_tpu_torch.osd.osdmap import Incremental, OSDMap
+    from ceph_tpu_torch.osd.osdmap_mapping import OSDMapMapping
+    from ceph_tpu_torch.osd.types import POOL_TYPE_ERASURE, PGPool
+    from ceph_tpu_torch.utils.devmon import DeviceRuntimeMonitor, devmon
+
+    crush = crush_sweep.canonical_map(10240)
+    ec_rule = builder.add_simple_rule(crush, crush.rules[0].steps[0].arg1,
+                                      builder.TYPE_HOST, indep=True)
+    om = OSDMap(crush, device="cuda")
+    om.add_pool(PGPool(id=1, pg_num=PG_NUM, size=3, crush_rule=0,
+                       name="rbd"))
+    om.add_pool(PGPool(id=2, pg_num=EC_PG_NUM, size=K + M, min_size=K + 1,
+                       type=POOL_TYPE_ERASURE, crush_rule=ec_rule,
+                       erasure_code_profile=f"k={K} m={M}", name="ec"))
+    shards = sum(p.pg_num * p.size for p in om.pools.values()) / om.max_osd
+    dm = DeviceRuntimeMonitor(name="placement_epochs_devmon", register=False)
+    rng = np.random.default_rng(SEED + 4)
+    t_phase = time.perf_counter()
+
+    def scratch(pid, rows):
+        p = om.pools[pid]
+        seeds = np.asarray(rows, dtype=np.uint32)
+        craw, pps = om.pg_to_crush_osds(pid, seeds)
+        return (craw, *om._pipeline_from_crush(p, seeds, craw, pps))
+
+    def check_rows(pid, rows, what):
+        rows = np.unique(np.asarray(rows, dtype=np.int64))
+        t = mm._pools[pid]
+        for name, want in zip(TABLES, scratch(pid, rows)):
+            require(np.array_equal(getattr(t, name)[rows], want),
+                    f"{what}: pool {pid} {name} differs from a "
+                    f"from-scratch sweep")
+        return len(rows)
+
+    with LaunchLog(kernels) as log:
+        # -- 17. build ---------------------------------------------------
+        torch.cuda.synchronize()
+        log.main, log.real.launches = True, 0
+        t0 = time.perf_counter()
+        mm = OSDMapMapping(om, devmon=dm)
+        build_s = time.perf_counter() - t0
+        log.main = False
+        main_launches = log.real.launches
+        om.attach_mapping(mm)
+        log.drain("build")
+        require(main_launches == 1 and mm.last_full_sweep_pools == 2,
+                f"build: {main_launches} launches, "
+                f"{mm.last_full_sweep_pools} pools swept")
+        print(f"[{card}] placement epochs: build of {PG_NUM} + {EC_PG_NUM}"
+              f" PGs ({shards:.1f} PG shards per OSD) in {build_s:.3f} s "
+              f"(host clock, first use included); engines "
+              f"{om.pg_to_crush_osds_path(1, [0])[2][1]} and "
+              f"{om.pg_to_crush_osds_path(2, [0])[2][1]}")
+        log.drain("engines")
+
+        # -- 18. the stream ------------------------------------------------
+        st, per_kind = {}, {}
+        n_full = 0
+        full_at = {0, len(EPOCH_KINDS) // 2, len(EPOCH_KINDS) - 1}
+        for i, kind in enumerate(EPOCH_KINDS):
+            inc = _epoch_incremental(kind, om, mm, rng, st)
+            old = {pid: {n: getattr(mm._pools[pid], n).copy()
+                         for n in TABLES} for pid in om.pools}
+            torch.cuda.synchronize()
+            log.main, log.real.launches = True, 0
+            t0 = time.perf_counter()
+            om.apply_incremental(inc)
+            mm.update(om)
+            dt = time.perf_counter() - t0
+            log.main = False
+            ep_launches = log.real.launches
+            main_launches += ep_launches
+            base, _, rm = _kind_parts(kind)
+            rec = per_kind.setdefault(base + "_rm" * rm, {
+                "seconds": [], "rows_remapped": 0, "full_sweep_pools": 0,
+                "launches": 0})
+            rec["seconds"].append(dt)
+            rec["rows_remapped"] += mm.last_remap_pgs
+            rec["full_sweep_pools"] += mm.last_full_sweep_pools
+            rec["launches"] += ep_launches
+            if base in ("in", "reweight_in", "crush"):
+                # both pools' rules take the root: every OSD is reachable
+                require(mm.last_full_sweep_pools == len(om.pools),
+                        f"epoch {i} {kind}: {mm.last_full_sweep_pools} "
+                        f"pools re-swept, want {len(om.pools)}")
+            else:
+                require(mm.last_full_sweep_pools == 0,
+                        f"epoch {i} {kind}: a delta update re-swept "
+                        f"{mm.last_full_sweep_pools} pools")
+            osds = set(inc.new_up) | set(inc.new_down) | \
+                set(inc.new_weight) | set(inc.new_primary_affinity)
+            checked = 0
+            for pid, pool_ in om.pools.items():
+                t = mm._pools[pid]
+                if mm.last_full_sweep_pools or i in full_at:
+                    rows = np.arange(pool_.pg_num)
+                else:
+                    moved = np.zeros(pool_.pg_num, dtype=bool)
+                    for n in TABLES:
+                        a, b = old[pid][n], getattr(t, n)
+                        moved |= (a != b) if a.ndim == 1 else \
+                            (a != b).any(axis=1)
+                    if osds:
+                        ol = np.asarray(sorted(osds))
+                        moved |= np.isin(old[pid]["craw"], ol).any(axis=1)
+                        moved |= np.isin(t.craw, ol).any(axis=1)
+                    named = [pg.seed for d in (
+                        inc.new_pg_temp, inc.new_primary_temp,
+                        inc.new_pg_upmap_items) for pg in d
+                        if pg.pool == pid] + [
+                        pg.seed for pg in inc.old_pg_upmap_items
+                        if pg.pool == pid]
+                    rows = np.concatenate([
+                        np.flatnonzero(moved), named,
+                        rng.choice(pool_.pg_num, EPOCH_SAMPLE,
+                                   replace=False)])
+                checked += check_rows(pid, rows, f"epoch {i} {kind}")
+            log.drain(f"epoch {i} {kind}")
+            n_full += bool(mm.last_full_sweep_pools)
+            print(f"[{card}] epoch {om.epoch} {kind}: update {dt:.4f} s, "
+                  f"{mm.last_remap_pgs} rows re-mapped, "
+                  f"{mm.last_full_sweep_pools} pools re-swept, "
+                  f"{ep_launches} crush_straw2 launches; {checked} rows "
+                  f"equal a from-scratch sweep")
+
+        # the last epoch against the scalar spec
+        w = om._device_weights().tolist()
+        for pid, pool_ in om.pools.items():
+            pick = np.linspace(0, pool_.pg_num - 1,
+                               SCALAR_SAMPLE).astype(np.int64)
+            seeds = pick.astype(np.uint32)
+            pps = pool_.raw_pg_to_pps(seeds)
+            raw = scalar_map(pool, om.crush, pool_.crush_rule, pps,
+                             pool_.size, w).astype(np.int32)
+            want = (raw, *om._pipeline_from_crush(pool_, seeds, raw, pps))
+            t = mm._pools[pid]
+            for name, wv in zip(TABLES, want):
+                require(np.array_equal(getattr(t, name)[pick], wv),
+                        f"last epoch: pool {pid} {name} differs from "
+                        f"mapper_ref + pipeline")
+        print(f"[{card}] last epoch: {SCALAR_SAMPLE} PGs per pool equal "
+              f"mapper_ref + the post-CRUSH pipeline")
+        breakdown = epoch_breakdown(om, mm, log, rng)
+        print(f"[{card}] epoch breakdown (host clock, synchronised; "
+              f"kernel by CUDA events): " + json.dumps(breakdown))
+
+        # -- 19. the memo --------------------------------------------------
+        hits0, misses0 = om.mapping_cache_hits, om.mapping_cache_misses
+        log.main, log.real.launches = True, 0
+        n_before = len(log.pending)
+        for j in range(MEMO_LOOKUPS):
+            pid = 1 + j % 2
+            seed = int(rng.integers(0, om.pools[pid].pg_num))
+            up, upp, act, actp = om.pg_to_up_acting_osds(pid, [seed])
+            t = mm._pools[pid]
+            require(np.array_equal(up[0], t.up[seed]) and
+                    int(actp[0]) == int(t.acting_primary[seed]),
+                    f"memo: lookup {pid}.{seed:x} differs from the table")
+        log.main = False
+        require(om.mapping_cache_hits - hits0 == MEMO_LOOKUPS and
+                log.real.launches == 0 and len(log.pending) == n_before,
+                f"memo: {om.mapping_cache_hits - hits0} hits, "
+                f"{log.real.launches} launches for {MEMO_LOOKUPS} lookups")
+        victim = int(mm._pools[1].up[0][0])
+        om.apply_incremental(Incremental(epoch=om.epoch + 1,
+                                         new_down=[victim]))
+        log.main, log.real.launches = True, 0
+        got = {pid: [om.pg_to_up_acting_osds(pid, [s]) for s in range(16)]
+               for pid in om.pools}
+        log.main = False
+        memo_launches = log.real.launches
+        main_launches += memo_launches
+        require(om.mapping_cache_misses - misses0 == 32 and memo_launches
+                == 16, f"memo: {om.mapping_cache_misses - misses0} misses, "
+                       f"{memo_launches} launches after the incremental")
+        for pid in om.pools:
+            want = scratch(pid, np.arange(16))[1:]     # less craw
+            for s in range(16):
+                for a, b in zip(got[pid][s], want):
+                    require(np.array_equal(np.asarray(a)[0], b[s]),
+                            f"memo: miss {pid}.{s} differs from a sweep")
+        require(victim not in got[1][0][0][0], "memo: served a stale row")
+        log.drain("memo")
+        print(f"[{card}] memo: {MEMO_LOOKUPS} lookups from the table at "
+              f"the attached epoch with no launch; after one more "
+              f"incremental 32 lookups missed ({memo_launches} one-lane "
+              f"launches) and equal a fresh sweep")
+
+        # -- 20. health ----------------------------------------------------
+        d, proc = dm.perf.dump(), devmon().perf.dump()
+        health = {"path_checks": d["path_checks"],
+                  "path_mismatch": d["path_mismatch"] +
+                  proc["path_mismatch"],
+                  "quarantine_entries": proc["quarantine_entries"],
+                  "quarantined": [mp.kernel_quarantine_info()
+                                  for mp in om._mappers.values()
+                                  if mp.kernel_quarantine_info()]}
+        require(health["path_checks"] > 0 and not health["path_mismatch"]
+                and not health["quarantine_entries"]
+                and not health["quarantined"], f"health: {health}")
+        epochs_s = time.perf_counter() - t_phase
+
+        # -- 21. osdmaptool and crushtool ------------------------------------
+        out_dir = os.path.join("build", "placement_epochs")
+        os.makedirs(out_dir, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            f, g = os.path.join(tmp, "osdmap.bin"), os.path.join(tmp, "g.bin")
+            log.sample, checked0 = True, log.checked
+            tool = osdmaptool.main(["--createsimple", "10240", "--pg-num",
+                                    str(PG_NUM), "--test-map-pgs",
+                                    "--churn", "4", "--export", f])
+            log.drain("osdmaptool --churn")
+            back = osdmaptool.main(["--mapfn", f, "--test-map-pgs",
+                                    "--export", g])
+            again = osdmaptool.main(["--mapfn", g, "--test-map-pgs"])
+            log.drain("osdmaptool --mapfn")
+            log.sample = False
+            tool_checked = log.checked - checked0
+            same = {k: back["map_pgs"][k] == again["map_pgs"][k]
+                    for k in ("avg", "min", "max", "stddev",
+                              "degraded_pgs")}
+            with open(f, "rb") as fa, open(g, "rb") as fb:
+                require(fa.read() == fb.read(),
+                        "osdmaptool: --mapfn --export changed the bytes")
+            require(all(same.values()) and tool["churn"]["events"] > 0,
+                    f"osdmaptool: distribution after the round trip "
+                    f"{back['map_pgs']} vs {again['map_pgs']}")
+            c0, c1 = os.path.join(tmp, "c0.bin"), os.path.join(tmp, "c1.bin")
+            with open(c0, "wb") as fc:
+                fc.write(encode_crush_map(crush_sweep.canonical_map(10240)))
+            crushtool.main(["-i", c0, "-o", c1])
+            ct = crushtool.main(["-i", c1, "--test", "--num-rep", "3",
+                                 "--max-x", "65535"])
+            log.drain("crushtool")
+            with open(c0, "rb") as fa, open(c1, "rb") as fb:
+                require(fa.read() == fb.read(),
+                        "crushtool: -i/-o changed the canonical map's bytes")
+            require(ct["path"] == "kernel" and ct["bad_mappings"] == 0,
+                    f"crushtool -i: {ct['path']}, {ct['bad_mappings']} bad")
+        print(f"[{card}] osdmaptool: --createsimple 10240 --pg-num {PG_NUM}"
+              f" --test-map-pgs --churn 4 --export, then --mapfn twice: "
+              f"distribution and bytes unchanged; crushtool -i/-o: the "
+              f"canonical map byte for byte; osdmaptool's {tool_checked} "
+              f"launches checked against the plain version (the first on "
+              f"every lane, the rest on every 16th)")
+
+    kinds = {}
+    for k, rec in per_kind.items():
+        secs = sorted(rec.pop("seconds"))
+        kinds[k] = {"epochs": len(secs),
+                    "update_s_median": secs[len(secs) // 2],
+                    "update_s_max": secs[-1], **rec}
+    record = {
+        "card": card, "osds": om.max_osd,
+        "pools": {pid: {"pg_num": p.pg_num, "size": p.size,
+                        "engine": om.serving_mapper(pid).mapping_path(
+                            p.crush_rule, p.size)}
+                  for pid, p in om.pools.items()},
+        "pg_shards_per_osd": shards,
+        "build_s": build_s,
+        "epochs": len(EPOCH_KINDS), "full_sweep_epochs": n_full,
+        "by_kind": kinds,
+        "kernel": {"launches": main_launches,
+                   "lanes": log.main_lanes,
+                   "cuda_event_ms": log.main_ms,
+                   "checked_against_plain": log.checked,
+                   "max_abs_err": log.worst},
+        "mapping_cache_hits": om.mapping_cache_hits,
+        "mapping_cache_misses": om.mapping_cache_misses,
+        "health": health,
+        "phase_s_to_health": epochs_s,
+        "phase_s": time.perf_counter() - t_phase,
+        "breakdown": breakdown,
+        "osdmaptool": {"map_pgs": tool["map_pgs"], "churn": tool["churn"],
+                       "mapfn_map_pgs": back["map_pgs"],
+                       "kernel_lanes_ms": log.other.get(
+                           "osdmaptool --churn", [])},
+    }
+    print("placement_epochs: " + json.dumps(record))
+    return main_launches
 
 
 if __name__ == "__main__":
