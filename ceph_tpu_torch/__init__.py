@@ -20,13 +20,20 @@ imports torch and never jax, nor anything of ``ceph_tpu``.
                             incrementals, the lookup memo), the
                             OSDMapMapping table kept across epochs, PG
                             types, object-name hashes, the EC write and
-                            read aggregators.
+                            read aggregators, the EC object backend
+                            (``ec_backend``: RMW, recovery, scrub,
+                            residency), stripe math, the PG log.
+- ``ceph_tpu_torch.os_``    object stores: kv, allocator, MemStore,
+                            WALStore, BlueStore (host only).
+- ``ceph_tpu_torch.interop`` the native C++ RS backend (``ref``, ``isa``)
+                            over ctypes.
 - ``ceph_tpu_torch.encoding`` binary codecs of crush maps, osdmaps and
                             incrementals (ceph_tpu's bytes).
 - ``ceph_tpu_torch.sim``    the churn (rebalance) simulator.
 - ``ceph_tpu_torch.bench``  ``ceph_erasure_code_benchmark``-compatible CLI,
-                            ``crushtool``, ``crush_sweep``, ``osdmaptool``
-                            and ``ec_streaming``.
+                            ``crushtool``, ``crush_sweep``, ``osdmaptool``,
+                            ``objectstore_tool``, ``ec_streaming`` and
+                            ``ec_daemon_path``.
 - ``ceph_tpu_torch.utils``  Device selection, kernel build, timing,
                             bounds, perf counters, logging, the
                             device-runtime monitor (``devmon``).

@@ -83,8 +83,11 @@ def gf_encode(bitmatrix: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"gf_encode launch failed: "
                            f"{error_string(err).decode()} (cudaError {err})")
-    gf_encode.launches += 1
+    _counted.launches += 1
     return out
 
 
 gf_encode.launches = 0
+# the count lives on this function object, so a wrapper bound to the
+# name ``gf_encode`` later (a checking hook) does not take it over
+_counted = gf_encode

@@ -105,6 +105,38 @@ Then the EC plugins (``ec_plugin_phase``): one 4 MiB object encoded and
 decoded through ``plugin=lrc k=4 m=2 l=3``, ``plugin=shec k=8 m=4 c=3``
 and ``plugin=clay k=4 m=2 d=5``, each against its host reference.
 
+Then the OSD's erasure-coded object path, at full width
+(``ec_object_path_phase``): ``ECBackendLite(chunk_size=4096)`` over the
+flagship ``plugin=jax k=8 m=3 reed_sol_van`` with a 256 MiB residency
+budget, 256 objects of 4 MiB (RBD's default object) and a host mirror of
+each. Every gf_encode launch of these phases is timed (CUDA events) and
+held against gf_encode_plain by a checking hook, and the launch count is
+set to 0 just before each path and read just after:
+
+22. Write: every object whole (one launch of 128 stripes each).
+23. RMW: 4,096 writes of 4 KiB at seeded unaligned offsets, one in eight
+   straddling a stripe boundary, then 64 of 100 KiB; every object reads
+   back equal to its mirror.
+24. Recovery: shards 2 (data) and 9 (parity) lost on every object, then
+   ``recover_all``: each rebuilt shard equals its copy saved before the
+   loss, ``recover_chunks`` is 256 x 2 x 128, every object reads back.
+25. Scrub: one byte flipped in one shard of 16 objects (8 data, 8
+   parity); ``scrub`` returns exactly that shard; 16 clean objects
+   scrub ``[]``.
+26. Residency: 32 objects read twice, the second pass all hits, the
+   cache within its budget; a write invalidates its stale generation.
+27. 1,024 seeded stripes' stored parity equals the native C++ backend
+   (``plugin=isa``, which must be the independent ``ErasureCodeRef``).
+28. ``plugin=lrc k=4 m=2 l=3`` and ``plugin=shec k=8 m=4 c=3`` on 16
+   objects each: a shard lost, recovered from the plugin's local
+   ``minimum_to_decode`` set, every object equal to its mirror.
+29. ``ec_daemon_path`` at its production shape (256 degraded reads of
+   32 x 8 x 4096 B), per-op, aggregated and resident.
+One ``ec_object_path`` JSON line gives the host-clock rates, the
+launches and CUDA-event milliseconds by operation, the kernel's times
+and bounds at (128, 8, 4096) and (1, 8, 4096), the residency and
+``ec_backend`` counters and the card.
+
 Last: one JSON line listing both kernels, then the card from
 nvidia-smi, then the last line ``{"ok": true, "device": {...}}``.
 
@@ -147,6 +179,16 @@ N_OPS, OP_STRIPES, OP_C = 256, 32, 4096   # ec_streaming production shape
 STREAM_OPS = 16                        # ops per streamed batch (16 MiB)
 SCRUB_ROWS = 4096                      # rows of the scrub CRC job
 FP32_FLOPS = 67e12                     # H100 SXM datasheet, non-tensor
+# the EC object path: RBD's default object (rbd_default_order 22)
+OBJ_COUNT, OBJ_SIZE, OBJ_C = 256, 4 << 20, 4096
+OBJ_RESIDENT_BYTES = 256 << 20
+RMW_OPS, RMW_BYTES = 4096, 4096        # RBD's 4K random write
+RMW_BIG_OPS, RMW_BIG = 64, 100 << 10
+SCRUB_OBJS = 16                        # corrupted, and as many clean
+RESIDENT_OBJS = 32
+NATIVE_STRIPES = 1024
+LAYER_OBJS = 16                        # objects per lrc/shec profile
+OBJ_RESERVE_LARGE, OBJ_RESERVE_SMALL = 4 << 30, 512 << 20
 
 
 def require(cond: bool, what: str) -> None:
@@ -331,6 +373,8 @@ def main() -> None:
                                                 spec)
     by_path.update(plane_launches)
     by_path.update(ec_plugin_phase(registry, card))
+    obj_launches, err_obj = ec_object_path_phase(registry, card, spec)
+    by_path.update(obj_launches)
     print(f"gf_encode launches by path: {json.dumps(by_path)}")
 
     # -- result ----------------------------------------------------------------
@@ -341,7 +385,7 @@ def main() -> None:
         "replaces": "ceph_tpu/gf/pallas_kernels.py:168",
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
-        "max_abs_err": max(err_enc, err_dec, err_plane),
+        "max_abs_err": max(err_enc, err_dec, err_plane, err_obj),
         "ms": enc_ms,
         "plain_ms": plain_enc_ms,
         "bound_ms": enc_bound_s * 1e3,
@@ -618,6 +662,442 @@ def ec_plugin_phase(registry, card: str) -> dict:
               f"(host clock); gf_encode launches {launches[name]}; "
               f"parity equals the host reference; decode exact")
     return launches
+
+
+class GfLaunchLog:
+    """A checking hook around ``kernels.gf_encode``: every launch is timed
+    with CUDA events under the current ``label`` and, once ``drain``
+    runs, held against ``gf_encode_plain`` on the same bitmatrix and
+    batch (after the timed windows, so the check costs the path
+    nothing). The batches a launch reads and writes are fresh tensors
+    that nothing writes later, so holding references is enough."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.real = kernels.gf_encode
+        self.label = None
+        self.pending = []
+        self.launches, self.ms, self.shapes = {}, {}, {}
+        self.checked = self.worst = 0
+
+    def __enter__(self):
+        self.kernels.gf_encode = self.launch
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels.gf_encode = self.real
+
+    def launch(self, bm, data):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.real(bm, data)
+        end.record()
+        self.pending.append((bm, data, out, start, end, self.label))
+        return out
+
+    def drain(self, what: str) -> None:
+        """Check every pending launch against the plain version."""
+        for bm, data, out, start, end, label in self.pending:
+            end.synchronize()
+            self.launches[label] = self.launches.get(label, 0) + 1
+            self.ms[label] = self.ms.get(label, 0.0) + \
+                start.elapsed_time(end)
+            shape = "x".join(map(str, data.shape))
+            by = self.shapes.setdefault(label, {})
+            by[shape] = by.get(shape, 0) + 1
+            err = max_err_vs_plain(self.kernels, bm, data, out, 256)
+            require(err == 0, f"{what}: a gf_encode launch of "
+                              f"{tuple(data.shape)} differs from its plain "
+                              f"version by {err}")
+            self.worst = max(self.worst, err)
+            self.checked += 1
+        self.pending.clear()
+
+
+def reserve_allocator(large: int, small: int) -> None:
+    """Fill PyTorch's caching allocator with free device memory, ``large``
+    bytes in one block (served split, for batches over 1 MiB) and
+    ``small`` bytes in 1 MiB tensors (the 2 MiB segments of the small
+    pool). A checking hook holds every batch of a path until it drains;
+    with the memory already cached, neither those batches nor a launch's
+    output need a cudaMalloc inside the timed paths, as in a steady
+    state that holds nothing."""
+    big = torch.empty(large, dtype=torch.uint8, device="cuda")
+    few = [torch.empty(1 << 20, dtype=torch.uint8, device="cuda")
+           for _ in range(small >> 20)]
+    del big, few
+
+
+def kernel_device_ms(fn, reps: int, kernel: str):
+    """Mean device milliseconds per launch of the CUDA kernel named
+    ``kernel`` over ``reps`` runs of ``fn``, from a torch.profiler trace
+    (back-to-back launches of a small batch are host-bound, so CUDA
+    events around them time the host); None when the trace holds no
+    device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if kernel in ev.key and ev.count:
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0)
+            return us / 1e3 / ev.count if us else None
+    return None
+
+
+def write_breakdown(be, rng, n_objs: int, n_rmw: int) -> dict:
+    """Host seconds of a whole-object write and of a 4 KiB RMW taken
+    apart on the live backend (off the main path, on fresh objects):
+    the gather of the old stripes with its residency put, the encode
+    call (H2D of the merged batch and the launch), the readback of the
+    parity (the wait for the kernel and the D2H), and the rest (the
+    merge copy and the shard stores), by timing wrappers on the
+    backend's own calls."""
+    from ceph_tpu_torch.osd import ec_backend as ecb
+
+    spent = {"gather_and_pin": 0.0, "encode_call": 0.0, "readback": 0.0}
+
+    def timing(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            spent[key] += time.perf_counter() - t0
+            return out
+        return run
+    real_to_host = ecb.to_host
+    be._resident_read = timing("gather_and_pin", be._resident_read)
+    be.ec.encode_batch = timing("encode_call", be.ec.encode_batch)
+    ecb.to_host = timing("readback", real_to_host)
+    out = {}
+    try:
+        for what, ops in (
+                ("write_4MiB", [(f"bd.{i}", 0, rng.integers(
+                    0, 256, OBJ_SIZE, dtype=np.uint8).tobytes())
+                    for i in range(n_objs)]),
+                ("rmw_4KiB", [(f"bd.{int(rng.integers(0, n_objs))}",
+                               int(rng.integers(0, OBJ_SIZE - RMW_BYTES)),
+                               rng.integers(0, 256, RMW_BYTES,
+                                            dtype=np.uint8).tobytes())
+                              for _ in range(n_rmw)])):
+            for key in spent:
+                spent[key] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for oid, off, data in ops:
+                be.write(oid, off, data)
+            total = time.perf_counter() - t0
+            rec = {k: v / len(ops) for k, v in spent.items()}
+            rec["rest"] = total / len(ops) - sum(rec.values())
+            rec["total"] = total / len(ops)
+            out[what] = rec
+    finally:
+        del be._resident_read, be.ec.encode_batch
+        ecb.to_host = real_to_host
+    return out
+
+
+def ec_object_path_phase(registry, card: str, spec) -> tuple[dict, int]:
+    """The OSD's erasure-coded object path on the card (phases 22-29):
+    ``ECBackendLite`` over the flagship plugin with residency, 256
+    objects of 4 MiB. Returns the gf_encode launches of the object path
+    and of ``ec_daemon_path`` (each path driven with the count set to 0
+    just before it and read just after), and the largest byte difference
+    of any launch from the plain version."""
+    from ceph_tpu_torch.bench import ec_daemon_path
+    from ceph_tpu_torch.gf import kernels
+    from ceph_tpu_torch.osd.ec_backend import ECBackendLite
+    from ceph_tpu_torch.utils import roofline
+
+    ec = registry.factory("jax", f"k={K} m={M} technique=reed_sol_van")
+    require(ec.device.type == "cuda", f"object path plugin on {ec.device}")
+    budget = OBJ_RESIDENT_BYTES
+    be = ECBackendLite(ec, chunk_size=OBJ_C, name="ec_backend_smoke",
+                       config={"osd_ec_resident_bytes": budget})
+    rng = np.random.default_rng(SEED + 5)
+    oids = [f"rbd_data.{i:04x}" for i in range(OBJ_COUNT)]
+    W = be.sinfo.stripe_width
+    stripes = OBJ_SIZE // W
+    host_s, rec = {}, {}
+    t_phase = time.perf_counter()
+
+    def timed(what: str, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host_s[what] = time.perf_counter() - t0
+        return out
+
+    reserve_allocator(OBJ_RESERVE_LARGE, OBJ_RESERVE_SMALL)
+    with GfLaunchLog(kernels) as log:
+        torch.cuda.synchronize()
+        log.real.launches = 0
+        # -- 22. write every object whole ---------------------------------
+        log.label = "write"
+        mirror = {}
+        for oid in oids:
+            mirror[oid] = bytearray(rng.integers(0, 256, OBJ_SIZE,
+                                                 dtype=np.uint8).tobytes())
+
+        def write_all():
+            for oid in oids:
+                be.write(oid, 0, bytes(mirror[oid]))
+        timed("write", write_all)
+        log.drain("write")
+
+        # -- 23. RMW: 4 KiB random writes, then 100 KiB ones ----------------
+        log.label = "rmw"
+        small = []
+        for j in range(RMW_OPS):
+            oid = oids[int(rng.integers(0, OBJ_COUNT))]
+            if j % 8 == 0:           # straddle a stripe boundary
+                s = int(rng.integers(1, stripes))
+                off = s * W - int(rng.integers(1, RMW_BYTES))
+            else:
+                off = int(rng.integers(0, OBJ_SIZE - RMW_BYTES))
+            small.append((oid, off, rng.integers(
+                0, 256, RMW_BYTES, dtype=np.uint8).tobytes()))
+        big = [(oids[int(rng.integers(0, OBJ_COUNT))],
+                int(rng.integers(0, OBJ_SIZE - RMW_BIG)),
+                rng.integers(0, 256, RMW_BIG, dtype=np.uint8).tobytes())
+               for _ in range(RMW_BIG_OPS)]
+
+        def rmw(ops):
+            for oid, off, data in ops:
+                be.write(oid, off, data)
+                mirror[oid][off:off + len(data)] = data
+        straddle = sum((off // W) != ((off + RMW_BYTES - 1) // W)
+                       for _, off, _ in small)
+        timed("rmw", lambda: rmw(small))
+        timed("rmw_100k", lambda: rmw(big))
+        log.drain("rmw")
+        require(straddle >= RMW_OPS // 8, f"rmw: {straddle} straddling ops")
+
+        def read_all():
+            for oid in oids:
+                require(be.read(oid, 0, OBJ_SIZE) == bytes(mirror[oid]),
+                        f"read-back: {oid} differs from its mirror")
+        timed("read_cold", read_all)
+        require(all(be.sizes[o] == OBJ_SIZE for o in oids),
+                "read-back: an object size changed")
+
+        # -- 24. recovery: one data and one parity shard on every object --
+        log.label = "recover"
+        lost = (2, 9)
+        saved = {(s, o): be.shards[s][o].copy() for s in lost for o in oids}
+        rc0 = be.perf.dump()["recover_chunks"]
+        for s in lost:
+            be.lose_shard(s)
+        fixed = timed("recover", be.recover_all)
+        log.drain("recover")
+        require(fixed == {o: set(lost) for o in oids},
+                f"recovery: {len(fixed)} objects recovered")
+        for (s, o), arr in saved.items():
+            require(np.array_equal(be.shards[s][o], arr),
+                    f"recovery: shard {s} of {o} differs from its copy")
+        got_chunks = be.perf.dump()["recover_chunks"] - rc0
+        require(got_chunks == OBJ_COUNT * len(lost) * stripes,
+                f"recovery: recover_chunks {got_chunks}")
+        del saved
+        timed("read_after_recovery", read_all)
+
+        # -- 25. scrub: one flipped byte in one shard of 16 objects --------
+        log.label = "scrub"
+        bad = {}
+        for i, oid in enumerate(oids[:SCRUB_OBJS]):
+            shard = int(rng.integers(0, K)) if i < SCRUB_OBJS // 2 \
+                else K + int(rng.integers(0, M))
+            row, col = int(rng.integers(0, stripes)), int(
+                rng.integers(0, OBJ_C))
+            be.shards[shard][oid][row, col] ^= 0x5A
+            bad[oid] = (shard, row, col)
+
+        def scrub_bad():
+            for oid, (shard, _, _) in bad.items():
+                got = be.scrub(oid)
+                require(got == [shard], f"scrub: {oid} returned {got}, "
+                                        f"want [{shard}]")
+        timed("scrub_corrupt", scrub_bad)
+        for oid, (shard, row, col) in bad.items():
+            be.shards[shard][oid][row, col] ^= 0x5A
+        clean = oids[SCRUB_OBJS:2 * SCRUB_OBJS]
+
+        def scrub_clean():
+            for oid in clean:
+                require(be.scrub(oid) == [], f"scrub: clean {oid} flagged")
+        timed("scrub_clean", scrub_clean)
+        log.drain("scrub")
+
+        # -- 26. residency ------------------------------------------------
+        log.label = "residency"
+        hot = oids[-RESIDENT_OBJS:]
+        d0 = be.resident.dump()
+
+        def read_hot():
+            for oid in hot:
+                require(be.read(oid, 0, OBJ_SIZE) == bytes(mirror[oid]),
+                        f"residency: {oid} differs from its mirror")
+        timed("read_resident_first", read_hot)
+        d1 = be.resident.dump()
+        timed("read_resident", read_hot)
+        d2 = be.resident.dump()
+        require(d2["hits"] - d1["hits"] == RESIDENT_OBJS,
+                f"residency: second pass hits {d2['hits'] - d1['hits']}")
+        require(d2["resident_bytes"] <= budget, f"residency: {d2}")
+        oid = hot[0]
+        be.write(oid, 12345, b"\x42" * 4096)
+        mirror[oid][12345:12345 + 4096] = b"\x42" * 4096
+        d3 = be.resident.dump()
+        require(d3["invalidations"] > d2["invalidations"],
+                "residency: a write left its stale generation")
+        require(be.read(oid, 0, OBJ_SIZE) == bytes(mirror[oid]),
+                "residency: a read after the write is stale")
+        require(be.resident.dump()["misses"] > d3["misses"],
+                "residency: the read after a write hit a stale entry")
+        log.drain("residency")
+        torch.cuda.synchronize()
+        obj_launches = log.real.launches
+
+        # -- 27. parity against the independent native backend --------------
+        native = registry.factory(
+            "isa", f"k={K} m={M} technique=reed_sol_van")
+        require(getattr(native, "independent", False) is True,
+                f"isa gave {type(native).__name__}, not the native backend")
+        picks = [(oids[int(rng.integers(0, OBJ_COUNT))],
+                  int(rng.integers(0, stripes))) for _ in range(NATIVE_STRIPES)]
+        t0 = time.perf_counter()
+        for oid, s in picks:
+            data = np.stack([be.shards[c][oid][s] for c in range(K)])
+            stored = np.stack([be.shards[K + p][oid][s] for p in range(M)])
+            require(np.array_equal(native.encode_chunks(data), stored),
+                    f"native: stripe {s} of {oid} differs from the C++ "
+                    f"backend's parity")
+        host_s["native_check"] = time.perf_counter() - t0
+
+        # -- 28. lrc and shec on 16 objects each ----------------------------
+        log.real.launches = 0
+        layered = {}
+        for name, prof, shard in (("lrc", "k=4 m=2 l=3", 1),
+                                  ("shec", "k=8 m=4 c=3", 5)):
+            log.label = name
+            lec = registry.factory(name, prof)
+            lbe = ECBackendLite(lec, chunk_size=OBJ_C, name=f"ec_{name}")
+            objs = {f"{name}.{i}": mirror[oids[i]] for i in range(LAYER_OBJS)}
+            t0 = time.perf_counter()
+            for oid, data in objs.items():
+                lbe.write(oid, 0, bytes(data))
+            torch.cuda.synchronize()
+            w_s = time.perf_counter() - t0
+            lbe.lose_shard(shard)
+            _, to_read = lbe.recovery_plan(next(iter(objs)))
+            require(len(to_read) < lbe.k, f"{name}: recovery reads "
+                                          f"{sorted(to_read)}, not local")
+            t0 = time.perf_counter()
+            fixed = lbe.recover_all()
+            torch.cuda.synchronize()
+            r_s = time.perf_counter() - t0
+            require(fixed == {o: {shard} for o in objs},
+                    f"{name}: recovered {fixed}")
+            for oid, data in objs.items():
+                require(lbe.read(oid, 0, OBJ_SIZE) == bytes(data),
+                        f"{name}: {oid} differs from its mirror")
+            log.drain(name)
+            layered[name] = {"profile": prof, "lost_shard": shard,
+                             "reads": sorted(to_read), "write_s": w_s,
+                             "recover_s": r_s,
+                             "launches": log.launches.get(name, 0)}
+        torch.cuda.synchronize()
+        obj_launches += log.real.launches
+
+        # -- 29. ec_daemon_path at the production shape ------------------------
+        log.label = "ec_daemon_path"
+        torch.cuda.synchronize()
+        log.real.launches = 0
+        daemon = ec_daemon_path.ec_daemon_path_section()
+        torch.cuda.synchronize()
+        daemon_launches = log.real.launches
+        log.drain("ec_daemon_path")
+        daemon["card"] = card
+        print(f"[{card}] ec_daemon_path: " + json.dumps(daemon))
+        require(daemon["device"] == "cuda" and daemon["n_ops"] == 256 and
+                daemon["read_agg_batches"] >= 1,
+                f"ec_daemon_path: {daemon}")
+
+    breakdown = write_breakdown(be, rng, 16, 512)
+    print(f"[{card}] object path breakdown (host seconds per op, "
+          f"synchronised): " + json.dumps(breakdown))
+
+    # -- the kernel alone at the object path's widths ---------------------
+    bm = ec._encode_kernel.bitmatrix
+    widths = {}
+    for b in (stripes, 1):
+        x = random_bytes((b, K, OBJ_C), SEED + 6 + b)
+        nbytes, ops = roofline.gf_encode_work(b, K, M, OBJ_C)
+        bound_s, bound_by = roofline.bound_seconds(nbytes, ops, spec)
+        widths[f"{b}x{K}x{OBJ_C}"] = {
+            "kernel_device_ms": kernel_device_ms(
+                lambda: kernels.gf_encode(bm, x), 50, "gf_encode_kernel"),
+            "back_to_back_events_ms": events_ms(
+                lambda: kernels.gf_encode(bm, x), 50),
+            "plain_ms": events_ms(lambda: kernels.gf_encode_plain(bm, x),
+                                  5),
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "bytes": nbytes}
+    gib = 1 << 30
+    record = {
+        "card": card,
+        "profile": f"plugin=jax k={K} m={M} technique=reed_sol_van",
+        "objects": OBJ_COUNT, "object_bytes": OBJ_SIZE,
+        "chunk_size": OBJ_C, "stripes_per_object": stripes,
+        "resident_budget": budget,
+        "host_s": host_s,
+        "write_GiBs": OBJ_COUNT * OBJ_SIZE / host_s["write"] / gib,
+        "rmw_4k_ops_per_s": RMW_OPS / host_s["rmw"],
+        "rmw_4k_straddling": int(straddle),
+        "rmw_100k_ops_per_s": RMW_BIG_OPS / host_s["rmw_100k"],
+        "read_cold_GiBs": OBJ_COUNT * OBJ_SIZE / host_s["read_cold"] / gib,
+        "read_resident_GiBs": RESIDENT_OBJS * OBJ_SIZE /
+        host_s["read_resident"] / gib,
+        "recovery_rebuilt_GiBs": OBJ_COUNT * len(lost) * stripes * OBJ_C /
+        host_s["recover"] / gib,
+        "recovery_objects_per_s": OBJ_COUNT / host_s["recover"],
+        "scrub_s_per_object": {
+            "corrupt": host_s["scrub_corrupt"] / SCRUB_OBJS,
+            "clean": host_s["scrub_clean"] / SCRUB_OBJS},
+        "native_stripes_checked": NATIVE_STRIPES,
+        "gf_encode": {"launches_object_path": obj_launches,
+                      "launches_ec_daemon_path": daemon_launches,
+                      "by_operation": log.launches,
+                      "cuda_event_ms_by_operation": log.ms,
+                      "shapes_by_operation": log.shapes,
+                      "checked_against_plain": log.checked,
+                      "max_abs_err": log.worst,
+                      "widths": widths},
+        "residency": be.resident.dump(),
+        "ec_backend": {k: be.perf.dump()[k] for k in (
+            "write_bytes", "rmw_stripes", "encode_stripes",
+            "recover_chunks", "scrub_errors")},
+        "layered": layered,
+        "breakdown": breakdown,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    require(log.launches.get("write") == OBJ_COUNT,
+            f"write: {log.launches.get('write')} launches")
+    require(sum(v for k, v in log.launches.items()
+                if k != "ec_daemon_path") == obj_launches and
+            log.launches.get("ec_daemon_path") == daemon_launches,
+            f"launch counts {log.launches} vs {obj_launches}, "
+            f"{daemon_launches}")
+    print("ec_object_path: " + json.dumps(record))
+    return ({"ec_object_path": obj_launches,
+             "ec_daemon_path": daemon_launches}, log.worst)
 
 
 def scalar_rows(job):

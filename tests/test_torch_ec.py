@@ -18,8 +18,10 @@ import torch
 
 from ceph_tpu.ec.jax_plugin import ErasureCodeJax
 from ceph_tpu_torch.bench import ec_benchmark
+from ceph_tpu_torch.ec import registry as registry_mod
 from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
 from ceph_tpu_torch.ec.torch_plugin import ErasureCodeTorch
+from ceph_tpu_torch.interop.native import ErasureCodeRef
 from ceph_tpu_torch.utils import device as devsel
 from ceph_tpu_torch.utils import roofline, timing
 
@@ -123,25 +125,37 @@ def test_backend_names():
 
 @pytest.mark.parametrize("name", ["jax", "jerasure", "isa"])
 def test_registry_aliases(rng, name):
+    """jax and jerasure are the torch plugin; isa with an RS/Cauchy
+    technique is the independent native backend where the toolchain
+    builds it (as in ceph_tpu), the torch plugin otherwise. All give
+    ceph_tpu's parity."""
     reg = ErasureCodePluginRegistry.instance()
     ec = reg.factory(name, "k=3 m=2 technique=cauchy_good device=cpu")
-    assert isinstance(ec, ErasureCodeTorch)
-    assert ec.device.type == "cpu"
-    assert getattr(ec, "independent", None) is (False if name == "isa"
-                                                else None)
+    if name == "isa" and registry_mod._native_available():
+        assert isinstance(ec, ErasureCodeRef) and ec.independent is True
+    else:
+        assert isinstance(ec, ErasureCodeTorch)
+        assert ec.device.type == "cpu"
+        assert getattr(ec, "independent", None) is (False if name == "isa"
+                                                    else None)
     data = rng.integers(0, 256, size=(3, 128), dtype=np.uint8)
     ref = ErasureCodeJax("k=3 m=2 technique=cauchy_good")
     assert np.array_equal(ec.encode_chunks(data), ref.encode_chunks(data))
 
 
 @pytest.mark.parametrize("name", ["lrc", "shec", "clay", "ref"])
-def test_registry_unported_plugins_not_found(name):
-    """``ref`` (the native backend) is not ported and is not found; the
-    layered plugins are registered since their slice was ported."""
+def test_registry_layered_and_native_plugins_found(name):
+    """The layered plugins and ``ref`` (the native C++ backend) are
+    registered; an unknown name is not found."""
     reg = ErasureCodePluginRegistry.instance()
     if name == "ref":
         with pytest.raises(KeyError, match="not found"):
-            reg.factory(name, "k=2 m=2")
+            reg.factory("nosuch", "k=2 m=2")
+        assert reg.load("ref") is ErasureCodeRef
+        if registry_mod._native_available():
+            ec = reg.factory(name, "k=4 m=2")
+            assert isinstance(ec, ErasureCodeRef)
+            assert ec.get_data_chunk_count() == 4
         return
     ec = reg.factory(name, "k=4 m=2 device=cpu")
     assert type(ec).__module__ == f"ceph_tpu_torch.ec.{name}"

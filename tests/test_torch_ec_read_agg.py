@@ -1,7 +1,8 @@
 """The port's EC read data plane held against ceph_tpu's, byte for byte.
 
-Mirrors tests/test_ec_read_agg.py (all but its ``ec_backend`` and
-``scrub`` cases, whose modules are not ported yet), on
+Mirrors tests/test_ec_read_agg.py (all but its ``ec_backend`` case,
+which tests/test_torch_ec_backend.py mirrors, and its ``scrub`` case,
+whose module is not ported yet), on
 ``ErasureCodeTorch(..., device="cpu")`` beside ``ErasureCodeJax`` on
 JAX's CPU backend, with the same numpy inputs made from seeds:
 
