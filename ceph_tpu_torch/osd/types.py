@@ -21,6 +21,16 @@ POOL_TYPE_ERASURE = 3     # ref: pg_pool_t::TYPE_ERASURE
 
 FLAG_HASHPSPOOL = 1 << 2  # ref: pg_pool_t::FLAG_HASHPSPOOL
 
+# last_backfill watermark bounds (ref: hobject_t::get_max / is_max —
+# pg_info_t.last_backfill). Backfill scans the collection in plain
+# string-sorted object-name order; "" (MIN) sorts before every name and
+# MAX_OID after every name this framework can generate (object names
+# are JSON-safe strings; U+FFFF is a noncharacter that never appears in
+# them). last_backfill == MAX_OID means "fully backfilled" — the normal
+# state of every complete replica.
+MIN_OID = ""
+MAX_OID = "\uffff"
+
 
 def ceph_stable_mod(x, b, bmask, xp=np):
     """ref: src/include/ceph_hash.h ceph_stable_mod — the split-aware mod
@@ -83,7 +93,8 @@ class PGPool:
     extra: dict = field(default_factory=dict)
     # Fields placement never reads, carried because the map codec
     # (``encoding.maps``) encodes them: the pool quotas, the pg_num merge
-    # barrier and the pool's op QoS triple (ref: pg_pool_t
+    # barrier (the PG's merge predicates below read it) and the pool's
+    # op QoS triple (ref: pg_pool_t
     # quota_max_bytes/quota_max_objects, pg_num_pending; the mClock pool
     # profile). 0 = unset.
     quota_bytes: int = 0
@@ -116,6 +127,19 @@ class PGPool:
         """Replicated sets compact over holes; EC sets are positional
         (ref: pg_pool_t::can_shift_osds)."""
         return self.is_replicated()
+
+    def is_merge_source(self, seed: int) -> bool:
+        """Is this PG folded away by the pending pg_num decrease?
+        (ref: pg_t::is_merge_source)"""
+        return bool(self.pg_num_pending) and seed >= self.pg_num_pending
+
+    def merge_target(self, seed: int) -> int:
+        """The parent a merge-source seed folds into at pg_num_pending
+        (ref: pg_t::get_parent under the stable-mod fold)."""
+        assert self.pg_num_pending
+        return int(ceph_stable_mod(seed, self.pg_num_pending,
+                                   calc_mask(self.pg_num_pending),
+                                   xp=None))
 
     # -- seed math (array-capable) ----------------------------------------
     def raw_pg_to_pg(self, seeds, xp=np):

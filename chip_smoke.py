@@ -137,6 +137,37 @@ launches and CUDA-event milliseconds by operation, the kernel's times
 and bounds at (128, 8, 4096) and (1, 8, 4096), the residency and
 ``ec_backend`` counters and the card.
 
+Then the erasure-coded PG path, at full width (``ec_pg_path_phase``):
+one PG of a k=8 m=3 ``reed_sol_van`` pool (size 11, min_size 9,
+``stripe_unit`` 4096) on 12 OSD facades (``OSDFacade``: a MemStore, a
+messenger on 127.0.0.1 in crc mode, an ``ECAggregator``, an
+``ECReadAggregator`` and a 256 MiB ``DeviceShardCache`` each, all on the
+card), its acting set from ``OSDMap.pg_to_up_acting_osds`` under an
+``indep`` host rule; a client messenger sends ``MOSDOp``s to the primary.
+Every gf_encode launch is held against its plain version by the same
+hook, the count set to 0 just before the path and read just after:
+
+30. 128 concurrent whole-object writes of 4 MiB, then 256 4 KiB partial
+   writes (one in eight straddling a stripe); every object reads back
+   equal to its mirror, and 32 of them again from the residency cache.
+31. The OSDs at positions 2 (data) and 9 (parity) die and the map marks
+   them down: every object read degraded through ``ECReadAggregator``.
+32. The spare takes position 2 (``pg-upmap-items``); recovery pushes
+   rebuild its 128 shards, each equal to the mirror's bytes with its
+   ``_hcrc`` and ``_pos``; 16 objects' stored parity equals the native
+   C++ backend.
+33. One shard of 16 objects corrupted in its store: a deep scrub flags
+   exactly those 16, repair names each culprit shard and restores it,
+   and the sweeps' digests come from one device CRC job per sweep and
+   per deep check (``SCRUB_PERF``), equal to zlib; every ladder rung 0,
+   and no recovery rebuild failed on the card (``push_device_failures``,
+   ``rebuild_device_failures``).
+34. Off the path, on a healthy PG of its own: a 4 MiB write and a 4 KiB
+   partial write taken apart on the host clock.
+One ``ec_pg_path`` JSON line gives the host-clock rates, the launches
+and CUDA-event milliseconds by operation, the aggregator, residency,
+scrub and wire counters, the breakdown and the card.
+
 Last: one JSON line listing both kernels, then the card from
 nvidia-smi, then the last line ``{"ok": true, "device": {...}}``.
 
@@ -188,6 +219,11 @@ SCRUB_OBJS = 16                        # corrupted, and as many clean
 RESIDENT_OBJS = 32
 NATIVE_STRIPES = 1024
 LAYER_OBJS = 16                        # objects per lrc/shec profile
+# the EC PG path: one PG of a k=8 m=3 pool (size 11, min_size 9) on 12
+# OSD facades, 11 acting and one spare, the object path's objects
+PG_OSDS, PG_OBJS = 12, 128     # 256 ran past the phase's ~90 s (PERF.md §4)
+PG_RMW_OPS = 256                       # 4 KiB partial writes
+PG_SCRUB_OBJS = PG_NATIVE_OBJS = 16
 OBJ_RESERVE_LARGE, OBJ_RESERVE_SMALL = 4 << 30, 512 << 20
 
 
@@ -375,6 +411,7 @@ def main() -> None:
     by_path.update(ec_plugin_phase(registry, card))
     obj_launches, err_obj = ec_object_path_phase(registry, card, spec)
     by_path.update(obj_launches)
+    by_path["ec_pg_path"], err_pg = ec_pg_path_phase(card, spec)
     print(f"gf_encode launches by path: {json.dumps(by_path)}")
 
     # -- result ----------------------------------------------------------------
@@ -385,7 +422,7 @@ def main() -> None:
         "replaces": "ceph_tpu/gf/pallas_kernels.py:168",
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
-        "max_abs_err": max(err_enc, err_dec, err_plane, err_obj),
+        "max_abs_err": max(err_enc, err_dec, err_plane, err_obj, err_pg),
         "ms": enc_ms,
         "plain_ms": plain_enc_ms,
         "bound_ms": enc_bound_s * 1e3,
@@ -1754,6 +1791,868 @@ def placement_epochs_phase(card: str, pool) -> int:
     }
     print("placement_epochs: " + json.dumps(record))
     return main_launches
+
+
+# -- the PG path's harness: one OSD facade per OSD, over one map ------------
+#
+# The PG reaches its daemon only through ``self.osd``. ``OSDFacade`` is that
+# surface and nothing more: the daemon's own helpers (next_tid, osd_is_up,
+# send_osd, request_repeer; ``ceph_tpu/osd/daemon.py:357-388``), the PG
+# branch of its ms_dispatch (``:821-1070``), a messenger bound on 127.0.0.1
+# in crc mode, a MemStore, its own aggregators and residency cache
+# (``:212-240``), and reservers and a RecoveryThrottle. It is harness code,
+# not a feature: the smoke drives the port through it, and the CPU tests
+# drive both packages through it, side by side.
+
+PG_RINGS_AGG = ("flush_failures", "per_op_retries", "fallback_ops",
+                "crc_fallbacks")
+PG_RINGS_READ_AGG = ("flush_failures", "per_op_retries", "fallback_ops",
+                     "quarantined_ops")
+
+
+def pg_modules():
+    """The port's modules that the PG path reaches, and ``make_cache(config,
+    device)``, the residency cache's constructor. ``PGCluster`` reaches
+    the package only through this namespace."""
+    from types import SimpleNamespace
+
+    from ceph_tpu_torch import msg
+    from ceph_tpu_torch.ec.torch_plugin import DeviceShardCache
+    from ceph_tpu_torch.mon.messages import MOSDAlive
+    from ceph_tpu_torch.os_.objectstore import MemStore
+    from ceph_tpu_torch.osd import messages, recovery, scrub, types
+    from ceph_tpu_torch.osd.ec_aggregator import ECAggregator
+    from ceph_tpu_torch.osd.ec_pg import ECPG
+    from ceph_tpu_torch.osd.ec_read_aggregator import ECReadAggregator
+    from ceph_tpu_torch.osd.pg import PG
+    from ceph_tpu_torch.utils.op_tracker import OpTracker
+    from ceph_tpu_torch.utils.perf_counters import PerfCountersBuilder
+    from ceph_tpu_torch.utils.throttle import MessageThrottle
+    from ceph_tpu_torch.utils.tracing import Tracer
+
+    def make_cache(config, device):
+        return DeviceShardCache(config, device=device)
+    return SimpleNamespace(
+        msg=msg, M=messages, MOSDAlive=MOSDAlive, ECPG=ECPG, PG=PG, recovery=recovery, scrub=scrub, MemStore=MemStore,
+        ECAggregator=ECAggregator, ECReadAggregator=ECReadAggregator,
+        Tracer=Tracer, OpTracker=OpTracker, MessageThrottle=MessageThrottle,
+        PerfCountersBuilder=PerfCountersBuilder, types=types,
+        make_cache=make_cache)
+
+
+class MonStub:
+    """The monitor as the PG sees it (``osd.monc``): an MOSDAlive is
+    granted by applying an Incremental with ``new_up_thru`` to the map
+    and publishing it, as OSDMonitor::prepare_alive does; ``subscribe``
+    has nothing to do, since every facade holds the one map."""
+
+    def __init__(self, cluster):
+        self.cluster = cluster
+        self.grants = 0
+
+    async def send_report(self, m) -> None:
+        om = self.cluster.osdmap
+        if type(m).__name__ != "MOSDAlive" or \
+                om.up_thru.get(m.osd, 0) >= m.epoch:
+            return
+        from ceph_tpu_torch.osd.osdmap import Incremental
+        self.grants += 1
+        self.cluster.apply(Incremental(epoch=om.epoch + 1,
+                                       new_up_thru={m.osd: m.epoch}))
+
+    async def subscribe(self, what: str, start: int) -> None:
+        return None
+
+
+class OSDFacade:
+    """One OSD as its PGs see it (see the section comment above)."""
+
+    def __init__(self, cluster, whoami: int):
+        mods = cluster.mods
+        self.cluster, self.mods, self.whoami = cluster, mods, whoami
+        self.config = dict(cluster.config)
+        self.store = mods.MemStore()
+        self.msgr = mods.msg.Messenger(f"osd.{whoami}",
+                                       keyring=cluster.keyring,
+                                       mode=mods.msg.MODE_CRC)
+        self.msgr.set_policy("osd", mods.msg.Policy.lossless_peer())
+        self.msgr.add_dispatcher(self)
+        self.tracer = mods.Tracer(f"osd.{whoami}", self.config)
+        self.perf = (mods.PerfCountersBuilder(f"osd.{whoami}")
+                     .add_u64_counter("ops")
+                     .add_histogram("op_w_latency_hist")
+                     .add_histogram("op_r_latency_hist")
+                     .create_perf_counters(register=False))
+        self.op_tracker = mods.OpTracker()
+        # the daemon's defaults: osd_client_message_cap and _size_cap,
+        # osd_max_backfills, osd_recovery_max_active
+        self.client_throttle = mods.MessageThrottle(max_ops=256,
+                                                    max_bytes=500 << 20)
+        self.local_reserver = mods.recovery.AsyncReserver(1)
+        self.remote_reserver = mods.recovery.AsyncReserver(1)
+        # recovery.RecoveryThrottle stands in for the daemon's
+        # SchedulerThrottle (dmClock): the same acquire/release shape
+        self.recovery_throttle = mods.recovery.RecoveryThrottle(
+            max_active=8)
+        self.ec_agg = mods.ECAggregator(self.config)
+        self.ec_read_agg = mods.ECReadAggregator(self.config)
+        self.ec_resident = None
+        if int(self.config.get("osd_ec_resident_bytes", 0)) > 0:
+            self.ec_resident = mods.make_cache(self.config, cluster.device)
+        self.monc = cluster.monc
+        self.pgs: dict = {}
+        self._tid = 0
+        self._stopped = False
+
+    @property
+    def osdmap(self):
+        return self.cluster.osdmap
+
+    def backfill_toofull(self) -> bool:
+        return False
+
+    # -- the daemon's service facade (daemon.py:357-388) -----------------
+    def next_tid(self) -> int:
+        self._tid += 1
+        return self._tid
+
+    def osd_is_up(self, osd: int) -> bool:
+        om = self.osdmap
+        return 0 <= osd < om.max_osd and bool(om.is_up(osd))
+
+    async def send_osd(self, osd: int, msg) -> None:
+        addr = self.cluster.addrs.get(osd)
+        if addr is None:
+            raise ConnectionError(f"osd.{osd} has no address")
+        await asyncio.wait_for(
+            self.msgr.send_message(msg, addr, f"osd.{osd}"), timeout=2.0)
+
+    def request_repeer(self, pg, delay: float = 0.5) -> None:
+        async def later():
+            await asyncio.sleep(delay)
+            if pg.state == "peering" and pg.is_primary() and \
+                    not self._stopped:
+                pg.advance(pg.up, pg.acting, pg.primary, pg.epoch)
+        asyncio.ensure_future(later())
+
+    # -- map handling (daemon.py _on_osdmap, one EC pool, no split) -------
+    def consume_map(self, rows: dict) -> None:
+        """``rows``: pool id -> (up, acting, primary) per seed."""
+        om = self.osdmap
+        for pid, by_seed in rows.items():
+            pool = self.cluster.pools[pid]
+            for seed, (up, acting, primary) in enumerate(by_seed):
+                cid = str(self.mods.types.pg_t(pid, seed))
+                if cid not in self.pgs and self.whoami in up + acting:
+                    self.pgs[cid] = self.mods.ECPG(
+                        self, pool, self.mods.types.pg_t(pid, seed))
+                pg = self.pgs.get(cid)
+                if pg is not None:
+                    pg.advance(list(up), list(acting), primary, om.epoch)
+
+    def _pg_for(self, pgid_s: str, create: bool = False):
+        pg = self.pgs.get(pgid_s)
+        if pg is None and create:
+            pgid = self.mods.types.pg_t.parse(pgid_s)
+            up, acting, primary = self.cluster.placement(pgid.pool,
+                                                         pgid.seed)
+            pg = self.pgs[pgid_s] = self.mods.ECPG(
+                self, self.cluster.pools[pgid.pool], pgid)
+            pg.advance(up, acting, primary, self.osdmap.epoch)
+        return pg
+
+    # -- the PG branch of ms_dispatch (daemon.py:821-1070) ----------------
+    async def ms_handle_reset(self, conn) -> None:
+        return None
+
+    async def ms_dispatch(self, msg) -> bool:
+        M = self.mods.M
+        if isinstance(msg, M.MOSDOp):
+            pg = self._pg_for(str(self.mods.types.pg_t(msg.pool,
+                                                       msg.seed)))
+            if pg is None or not pg.is_primary():
+                await msg.conn.send_message(M.MOSDOpReply(
+                    tid=msg.tid, attempt=msg.attempt, result=-11,
+                    epoch=self.osdmap.epoch, data=b"", extra=""))
+                return True
+            # no backoff path yet: an op that arrives while the PG peers
+            # waits in its queue until the op worker starts
+            await pg.queue_op(msg)
+            return True
+        create = isinstance(msg, (M.MOSDECSubOpWrite, M.MOSDECSubOpRead,
+                                  M.MOSDPGQuery, M.MOSDPGPush,
+                                  M.MOSDPGScan, M.MOSDPGBackfill,
+                                  M.MBackfillReserve)) or (
+            isinstance(msg, M.MOSDPGInfo) and bool(msg.notify))
+        pgid = getattr(msg, "pgid", None)
+        pg = self._pg_for(pgid, create=create) if pgid else None
+        if pg is None:
+            return True
+        if isinstance(msg, M.MOSDECSubOpWrite):
+            pg.handle_ec_sub_write(msg)
+        elif isinstance(msg, M.MOSDECSubOpWriteReply):
+            pg.handle_ec_sub_write_reply(msg)
+        elif isinstance(msg, M.MOSDECSubOpRead):
+            pg.handle_ec_sub_read(msg)
+        elif isinstance(msg, M.MOSDECSubOpReadReply):
+            pg.handle_ec_sub_read_reply(msg)
+        elif isinstance(msg, M.MOSDPGQuery):
+            pg.handle_pg_query(msg)
+        elif isinstance(msg, M.MOSDPGInfo):
+            pg.handle_pg_info(msg)
+        elif isinstance(msg, M.MOSDPGPull):
+            pg.handle_pg_pull(msg)
+        elif isinstance(msg, M.MOSDPGPush):
+            if pg.apply_push(msg):
+                await self.send_osd(msg.from_osd, M.MOSDPGPushReply(
+                    pgid=msg.pgid, oid=msg.oid, from_osd=self.whoami))
+        elif isinstance(msg, M.MOSDPGPushReply):
+            pg.handle_push_reply(msg)
+        elif isinstance(msg, M.MPGCleanNotice):
+            pg.handle_clean_notice(msg)
+        elif isinstance(msg, M.MOSDPGScan):
+            pg.handle_pg_scan(msg)
+        elif isinstance(msg, M.MOSDPGScanReply):
+            pg.handle_scan_reply(msg)
+        elif isinstance(msg, M.MOSDPGBackfill):
+            pg.handle_backfill(msg)
+        elif isinstance(msg, M.MOSDPGBackfillReply):
+            pg.handle_backfill_reply(msg)
+        elif isinstance(msg, M.MBackfillReserve):
+            pg.handle_backfill_reserve(msg)
+        elif isinstance(msg, M.MOSDRepScrub):
+            await msg.conn.send_message(M.MOSDRepScrubMap(
+                pgid=msg.pgid, tid=msg.tid, from_osd=self.whoami,
+                scrub_map=self.mods.scrub.build_scrub_map(pg)))
+        elif isinstance(msg, M.MOSDRepScrubMap):
+            if pg._scrubber is not None:
+                pg.scrubber.handle_map(msg)
+        else:
+            return False
+        return True
+
+    async def stop(self) -> None:
+        """The daemon dies: its PGs' tasks end, its messenger closes."""
+        self._stopped = True
+        for pg in self.pgs.values():
+            for task in (pg._worker, pg._peering_task, pg._backfill_task,
+                         getattr(pg, "_posfix_task", None)):
+                if task is not None:
+                    task.cancel()
+        self.ec_agg.drain()
+        self.ec_read_agg.drain()
+        await self.msgr.shutdown()
+
+
+class PGCluster:
+    """``n`` OSD facades on ``n`` hosts of one CRUSH map (one OSD a host,
+    straw2) and one EC pool of one PG under an ``indep`` host rule, its
+    acting set from the port's ``OSDMap.pg_to_up_acting_osds`` (placement
+    is the port's in either package); a client messenger sends MOSDOps
+    to the primary. ``device`` is where the map's rule VM, the plugin
+    and the residency caches run."""
+
+    def __init__(self, mods, n_osds: int, profile: dict, size: int,
+                 min_size: int, device: str, config: dict | None = None):
+        from ceph_tpu_torch.crush import builder
+        from ceph_tpu_torch.osd.osdmap import OSDMap
+        from ceph_tpu_torch.osd.types import POOL_TYPE_ERASURE, PGPool
+        self.mods, self.device = mods, device
+        self.config = dict(config or {})
+        crush, root = builder.build_hierarchy(n_osds, 1)
+        rule = builder.add_simple_rule(crush, root, builder.TYPE_HOST,
+                                       indep=True)
+        self.osdmap = OSDMap(crush, device=device)
+        spec = dict(id=1, pg_num=1, size=size, min_size=min_size,
+                    crush_rule=rule, name="ecpool",
+                    extra={"profile": dict(profile)})
+        self.osdmap.add_pool(PGPool(type=POOL_TYPE_ERASURE, **spec))
+        # the PGs hold their own package's pool object
+        self.pools = {1: mods.types.PGPool(
+            type=mods.types.POOL_TYPE_ERASURE, **spec)}
+        self.keyring = mods.msg.Keyring()
+        for name in [f"osd.{i}" for i in range(n_osds)] + ["client.pg"]:
+            self.keyring.add(name, bytes([len(name)]) * 32)
+        self.monc = MonStub(self)
+        self.osds = {i: OSDFacade(self, i) for i in range(n_osds)}
+        self.addrs: dict = {}
+        self.client = None
+
+    def placement(self, pid: int, seed: int):
+        """(up, acting, primary) of one PG at the map's epoch; a hole is
+        -1, as the daemon writes it."""
+        from ceph_tpu_torch.crush.types import ITEM_NONE
+        up, _upp, acting, actp = self.osdmap.pg_to_up_acting_osds(
+            pid, [seed])
+
+        def row(r):
+            return [int(o) if o != ITEM_NONE else -1 for o in r]
+        return row(up[0]), row(acting[0]), int(actp[0])
+
+    def publish(self) -> None:
+        """Every live facade consumes the map (the daemon's map
+        handling, for this one pool)."""
+        rows = {pid: [self.placement(pid, s) for s in range(p.pg_num)]
+                for pid, p in self.osdmap.pools.items()}
+        for f in self.osds.values():
+            if not f._stopped:
+                f.consume_map(rows)
+
+    def apply(self, inc) -> None:
+        """Commit an Incremental and publish the map on the next loop
+        turn (a map reaches the OSDs after the commit, never inside the
+        caller's own step)."""
+        self.osdmap.apply_incremental(inc)
+        asyncio.get_event_loop().call_soon(self.publish)
+
+    def pg(self, osd: int):
+        return self.osds[osd].pgs.get("1.0")
+
+    def primary(self):
+        return self.pg(self.placement(1, 0)[2])
+
+    async def start(self, deadline: float = 30.0) -> None:
+        for i, f in self.osds.items():
+            self.addrs[i] = await f.msgr.bind("127.0.0.1")
+        self.client = PGClient(self)
+        self.publish()
+        await self.wait_state(("clean",), deadline)
+
+    async def wait_state(self, states, deadline: float = 30.0):
+        """Wait until the current primary's PG is in one of ``states``."""
+        def ready():
+            pg = self.primary()
+            return pg is not None and pg.state in states
+        await wait_until(ready, deadline, lambda: f"primary PG state "
+                         f"{getattr(self.primary(), 'state', None)}, "
+                         f"want {states}")
+        return self.primary()
+
+    async def kill(self, osds) -> None:
+        """The OSDs' daemons die and the map marks them down."""
+        from ceph_tpu_torch.osd.osdmap import Incremental
+        for o in osds:
+            await self.osds[o].stop()
+        self.apply(Incremental(epoch=self.osdmap.epoch + 1,
+                               new_down=list(osds)))
+
+    def replace(self, old: int, new: int) -> None:
+        """``ceph osd pg-upmap-items 1.0 old new``: ``new`` takes
+        ``old``'s position in the PG's acting set, the rest stay."""
+        from ceph_tpu_torch.osd.osdmap import Incremental
+        from ceph_tpu_torch.osd.types import pg_t
+        self.apply(Incremental(epoch=self.osdmap.epoch + 1,
+                               new_pg_upmap_items={pg_t(1, 0): [(old,
+                                                                 new)]}))
+
+    def perf_sum(self, what: str, keys) -> dict:
+        """A counter family summed over the live facades."""
+        out = dict.fromkeys(keys, 0)
+        for f in self.osds.values():
+            obj = getattr(f, what)
+            if obj is None:
+                continue
+            d = obj.perf.dump()
+            for k in keys:
+                out[k] += int(d.get(k, 0))
+        return out
+
+    def wire(self) -> dict:
+        out = {"tx_frames": 0, "tx_bytes": 0, "rx_frames": 0,
+               "rx_bytes": 0}
+        for m in [f.msgr for f in self.osds.values()] + \
+                [self.client.msgr]:
+            for k, v in getattr(m, "wire", {}).items():
+                out[k] += v
+        return out
+
+    async def stop(self) -> None:
+        await self.client.msgr.shutdown()
+        for f in self.osds.values():
+            if not f._stopped:
+                await f.stop()
+
+
+class PGClient:
+    """A client messenger that sends MOSDOps to the PG's primary and
+    waits for each reply, resending an -EAGAIN as the objecter does,
+    within a deadline."""
+
+    def __init__(self, cluster):
+        self.cluster = cluster
+        mods = cluster.mods
+        self.msgr = mods.msg.Messenger("client.pg", keyring=cluster.keyring,
+                                       mode=mods.msg.MODE_CRC)
+        self.msgr.add_dispatcher(self)
+        self._tid = 0
+        self._waiters: dict = {}
+
+    async def ms_handle_reset(self, conn) -> None:
+        return None
+
+    async def ms_dispatch(self, msg) -> bool:
+        if isinstance(msg, self.cluster.mods.M.MOSDOpReply):
+            fut = self._waiters.pop((msg.tid, msg.attempt), None)
+            if fut is not None and not fut.done():
+                fut.set_result(msg)
+            return True
+        return False
+
+    async def op(self, oid: str, ops, deadline: float = 60.0):
+        """ops: (code, offset, length, name, data) tuples. Returns the
+        reply; raises when no final reply arrives before the deadline."""
+        c = self.cluster
+        self._tid += 1
+        tid = self._tid
+        loop = asyncio.get_event_loop()
+        end = loop.time() + deadline
+        for attempt in range(1 << 30):
+            fut = loop.create_future()
+            self._waiters[(tid, attempt)] = fut
+            primary = c.placement(1, 0)[2]
+            m = c.mods.M.make_osd_op(tid, c.osdmap.epoch, 1, 0, oid, ops,
+                                     attempt=attempt)
+            try:
+                await self.msgr.send_message(m, c.addrs[primary],
+                                             f"osd.{primary}")
+                reply = await asyncio.wait_for(
+                    fut, max(0.01, end - loop.time()))
+            finally:
+                self._waiters.pop((tid, attempt), None)
+            if reply.result != -11:
+                return reply
+            if loop.time() >= end:
+                raise TimeoutError(f"{oid}: -EAGAIN until the deadline")
+            await asyncio.sleep(0.05)
+        raise AssertionError("unreachable")
+
+
+async def wait_until(pred, deadline: float, what) -> None:
+    """Poll ``pred`` every 10 ms; raise TimeoutError (with ``what()``)
+    when it is still false after ``deadline`` seconds."""
+    loop = asyncio.get_event_loop()
+    end = loop.time() + deadline
+    while not pred():
+        if loop.time() >= end:
+            raise TimeoutError(what())
+        await asyncio.sleep(0.01)
+
+
+
+def _timed_method(obj, name: str, spent: dict, key: str) -> None:
+    """Wrap ``obj.name`` (sync or async) so its wall time adds to
+    ``spent[key]``; the wrapper lives on the instance."""
+    import inspect
+    fn = getattr(obj, name)
+    if inspect.iscoroutinefunction(fn):
+        async def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return await fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t0
+    else:
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t0
+    setattr(obj, name, run)
+
+
+async def pg_write_breakdown(mods, profile, config, rng, n_writes: int,
+                             n_rmw: int) -> dict:
+    """Host seconds of a 4 MiB write_full and of a 4 KiB partial write
+    through a healthy PG, taken apart (off the main path, on a cluster of
+    its own, one op at a time): the messenger and the event loop (the
+    client round trip outside the primary's ``_execute``, and the sub-op
+    round trips outside the shards' applies), the PG and its log (the
+    rest of ``_execute``: the merge copy, the log entry and its meta
+    transaction, the ``_hcrc`` fold of the fused pass's row CRCs, the
+    sub-op messages), the gather of the old stripes, the encode call
+    (``_agg_encode``: the aggregator, the launch, the readback) and the
+    sub-write applies on every shard."""
+    from ceph_tpu_torch.ec import crc as ec_crc
+    cl = PGCluster(mods, PG_OSDS, profile, K + M, K + 1, "cuda", config)
+    M_ = mods.M
+    out = {}
+    real_hcrc = ec_crc.hcrc_attr
+    try:
+        await cl.start(deadline=60.0)
+        pg = cl.primary()
+        spent = dict.fromkeys(("exec", "gather", "encode", "fanout",
+                               "apply", "meta", "hcrc"), 0.0)
+        _timed_method(pg, "_execute", spent, "exec")
+        _timed_method(pg, "_meta_txn_store", spent, "meta")
+        _timed_method(ec_crc, "hcrc_attr", spent, "hcrc")
+        _timed_method(pg, "_gather", spent, "gather")
+        _timed_method(pg, "_agg_encode", spent, "encode")
+        _timed_method(pg, "_fan_out_subops", spent, "fanout")
+        for f in cl.osds.values():
+            if "1.0" in f.pgs:            # the spare holds no shard
+                _timed_method(f.pgs["1.0"], "_apply_sub_write", spent,
+                              "apply")
+        writes = [(f"bd.{i}", M_.OSD_OP_WRITEFULL, 0, rng.integers(
+            0, 256, OBJ_SIZE, dtype=np.uint8).tobytes())
+            for i in range(n_writes)]
+        rmws = [(f"bd.{int(rng.integers(0, n_writes))}", M_.OSD_OP_WRITE,
+                 int(rng.integers(0, OBJ_SIZE - RMW_BYTES)),
+                 rng.integers(0, 256, RMW_BYTES, dtype=np.uint8).tobytes())
+                for _ in range(n_rmw)]
+        for what, ops in (("write_4MiB", writes), ("rmw_4KiB", rmws)):
+            for key in spent:
+                spent[key] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for oid, code, off, data in ops:
+                r = await cl.client.op(oid, [(code, off, len(data), "",
+                                              data)])
+                require(r.result == 0, f"breakdown: {oid} {r.result}")
+            total = (time.perf_counter() - t0) / len(ops)
+            per = {k: v / len(ops) for k, v in spent.items()}
+            out[what] = {
+                "total": total,
+                "messenger_client_round_trip": total - per["exec"],
+                "messenger_subop_round_trips": per["fanout"] -
+                per["apply"],
+                "pg_and_log": per["exec"] - per["gather"] -
+                per["encode"] - per["fanout"],
+                "pg_and_log_of_which_meta_txn": per["meta"],
+                "pg_and_log_of_which_hcrc_fold": per["hcrc"],
+                "gather": per["gather"],
+                "encode_call": per["encode"],
+                "sub_write_apply": per["apply"]}
+    finally:
+        ec_crc.hcrc_attr = real_hcrc
+        await cl.stop()
+    return out
+
+
+def ec_pg_path_phase(card: str, spec) -> tuple[int, int]:
+    """The erasure-coded PG path on the card (phases 30-34): one ECPG of a
+    k=8 m=3 pool on 12 OSD facades, driven by a client messenger.
+    Returns the gf_encode launches of the path (the count set to 0 just
+    before it and read just after) and the largest byte difference of
+    any launch from the plain version."""
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.gf import kernels
+    from ceph_tpu_torch.osd.recovery import PERF as RECOVERY_PERF
+    from ceph_tpu_torch.utils import roofline
+
+    mods = pg_modules()
+    scrub_mod = mods.scrub
+    M_ = mods.M
+    profile = {"plugin": "jax", "technique": "reed_sol_van", "k": str(K),
+               "m": str(M), "stripe_unit": str(OBJ_C)}
+    config = {"osd_ec_resident_bytes": OBJ_RESIDENT_BYTES}
+    rng = np.random.default_rng(SEED + 7)
+    oids = [f"rbd_data.{i:04x}" for i in range(PG_OBJS)]
+    W = K * OBJ_C
+    stripes = OBJ_SIZE // W
+    gib = 1 << 30
+    host_s, rec = {}, {}
+    t_phase = time.perf_counter()
+    reserve_allocator(OBJ_RESERVE_LARGE, OBJ_RESERVE_SMALL)
+
+    async def timed(what, coro):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = await coro
+        torch.cuda.synchronize()
+        host_s[what] = time.perf_counter() - t0
+        return out
+
+    async def ops_all(cl, ops, what):
+        """Send every op at once (the PG queues them in order) and
+        require each to succeed."""
+        replies = await asyncio.gather(*[
+            cl.client.op(oid, [(code, off, ln, "", data)], deadline=900.0)
+            for oid, code, off, ln, data in ops])
+        bad = [(op[0], r.result) for op, r in zip(ops, replies)
+               if r.result != 0]
+        require(not bad, f"{what}: {len(bad)} ops failed, first {bad[:3]}")
+        return replies
+
+    def reads(names):
+        return [(oid, M_.OSD_OP_READ, 0, 0, b"") for oid in names]
+
+    def check_reads(replies, names, what):
+        for oid, r in zip(names, replies):
+            require(bytes(r.data) == bytes(mirror[oid]),
+                    f"{what}: {oid} differs from its mirror")
+
+    def resident_oids(f):
+        return {key[1] for key in getattr(f.ec_resident, "_lru", {})}
+
+    def card_failures():
+        d = RECOVERY_PERF.dump()
+        return (d.get("push_device_failures", 0),
+                d.get("rebuild_device_failures", 0))
+
+    async def run(log):
+        failures0 = card_failures()
+        cl = PGCluster(mods, PG_OSDS, profile, K + M, K + 1, "cuda",
+                       config)
+        await cl.start(deadline=60.0)
+        pg = cl.primary()
+        require(pg.ec.device.type == "cuda" and
+                cl.osds[pg.osd.whoami].ec_resident.device.type == "cuda",
+                "pg path: the plugin or the cache is not on the card")
+        _up, acting, _primary = cl.placement(1, 0)
+        require(-1 not in acting and len(set(acting)) == K + M,
+                f"pg path: acting {acting}")
+        spare = next(o for o in range(PG_OSDS) if o not in acting)
+        agg0 = cl.perf_sum("ec_agg", ("batches", "ops", "stripes"))
+        torch.cuda.synchronize()
+        log.real.launches = 0
+
+        # -- 30. write every object whole, then 4 KiB partial writes -----
+        log.label = "write"
+        await timed("write", ops_all(cl, [
+            (oid, M_.OSD_OP_WRITEFULL, 0, OBJ_SIZE, bytes(mirror[oid]))
+            for oid in oids], "write"))
+        log.drain("pg write")
+        agg1 = cl.perf_sum("ec_agg", ("batches", "ops", "stripes"))
+        log.label = "rmw"
+        small = []
+        for j in range(PG_RMW_OPS):
+            oid = oids[int(rng.integers(0, PG_OBJS))]
+            if j % 8 == 0:           # straddle a stripe boundary
+                s = int(rng.integers(1, stripes))
+                off = s * W - int(rng.integers(1, RMW_BYTES))
+            else:
+                off = int(rng.integers(0, OBJ_SIZE - RMW_BYTES))
+            data = rng.integers(0, 256, RMW_BYTES, dtype=np.uint8).tobytes()
+            small.append((oid, M_.OSD_OP_WRITE, off, RMW_BYTES, data))
+            mirror[oid][off:off + RMW_BYTES] = data
+        await timed("rmw", ops_all(cl, small, "rmw"))
+        log.drain("pg rmw")
+        rec["writes"] = {"whole": {k: agg1[k] - agg0[k] for k in agg0}}
+        agg2 = cl.perf_sum("ec_agg", ("batches", "ops", "stripes"))
+        rec["writes"]["rmw"] = {k: agg2[k] - agg1[k] for k in agg0}
+
+        # -- 30. read back, then the last 32 again from the cache ---------
+        log.label = "read"
+        got = await timed("read", ops_all(cl, reads(oids), "read"))
+        check_reads(got, oids, "read")
+        hot = oids[-RESIDENT_OBJS:]
+        res0 = cl.perf_sum("ec_resident", ("hits", "misses"))
+        got = await timed("read_resident", ops_all(cl, reads(hot),
+                                                   "resident"))
+        check_reads(got, hot, "read_resident")
+        res1 = cl.perf_sum("ec_resident", ("hits", "misses"))
+        require(res1["hits"] - res0["hits"] == RESIDENT_OBJS,
+                f"residency: {res1['hits'] - res0['hits']} hits of "
+                f"{RESIDENT_OBJS}")
+        log.drain("pg read")
+
+        # -- 31. a data and a parity OSD die: degraded reads -------------
+        lost = [acting[2], acting[9]]
+        await cl.kill(lost)
+        pg = await cl.wait_state(("active",), 60.0)
+        require(pg.acting[2] == -1 and pg.acting[9] == -1,
+                f"degraded: acting {pg.acting}")
+        log.label = "degraded_read"
+        dec0 = cl.perf_sum("ec_read_agg", ("batches", "ops", "stripes"))
+        got = await timed("read_degraded", ops_all(cl, reads(oids),
+                                                   "degraded read"))
+        check_reads(got, oids, "degraded read")
+        dec1 = cl.perf_sum("ec_read_agg", ("batches", "ops", "stripes"))
+        rec["degraded_decodes"] = {k: dec1[k] - dec0[k] for k in dec0}
+        require(rec["degraded_decodes"]["ops"] == PG_OBJS,
+                f"degraded: {rec['degraded_decodes']} decodes")
+        log.drain("pg degraded read")
+
+        # -- 32. the spare takes position 2; recovery pushes --------------
+        log.label = "recovery"
+        cl.replace(lost[0], spare)
+
+        def recovered():
+            p = cl.primary()
+            return p is not None and p.acting[2] == spare and \
+                p.state == "active" and not any(p.peer_missing.values()) \
+                and len(cl.osds[spare].store.list_objects("1.0")) == \
+                PG_OBJS + 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        await wait_until(recovered, 600.0, lambda: (
+            cl.primary().state, {o: len(v) for o, v in
+                                 cl.primary().peer_missing.items()}))
+        torch.cuda.synchronize()
+        host_s["recovery"] = time.perf_counter() - t0
+        log.drain("pg recovery")
+        require(card_failures() == failures0,
+                "recovery: a rebuild failed on the card")
+        st = cl.osds[spare].store
+        for oid in oids:
+            want = np.frombuffer(bytes(mirror[oid]), dtype=np.uint8
+                                 ).reshape(stripes, K, OBJ_C)[:, 2]
+            got_shard = st.read("1.0", oid)
+            require(got_shard == want.tobytes(),
+                    f"recovery: position 2 of {oid} differs from the "
+                    f"mirror's")
+            attrs = st.getattrs("1.0", oid)
+            require(attrs["_hcrc"] == zlib.crc32(got_shard).to_bytes(
+                4, "little") and attrs["_pos"] == (2).to_bytes(
+                4, "little", signed=True),
+                f"recovery: {oid}'s _hcrc or _pos")
+        # stored parity of 16 objects against the native C++ backend
+        native = factory(f"plugin=isa k={K} m={M} technique=reed_sol_van")
+        require(getattr(native, "independent", False) is True,
+                f"isa gave {type(native).__name__}, not the native backend")
+        t0 = time.perf_counter()
+        for oid in oids[:PG_NATIVE_OBJS]:
+            data = np.frombuffer(bytes(mirror[oid]), dtype=np.uint8
+                                 ).reshape(stripes, K, OBJ_C)
+            held = {p: np.frombuffer(cl.osds[pg.acting[p]].store.read(
+                "1.0", oid), dtype=np.uint8).reshape(stripes, OBJ_C)
+                for p in (K, K + 2)}
+            for s in range(stripes):
+                par = native.encode_chunks(data[s])
+                for p, arr in held.items():
+                    require(np.array_equal(par[p - K], arr[s]),
+                            f"native: stripe {s} parity {p} of {oid}")
+        host_s["native_check"] = time.perf_counter() - t0
+
+        # -- 33. one shard of 16 objects corrupted: scrub, repair ---------
+        pg = cl.primary()
+        bad, saved = {}, {}
+        live = [p for p in range(K + M) if pg.acting[p] >= 0]
+        for i, oid in enumerate(oids[:PG_SCRUB_OBJS]):
+            pos = live[int(rng.integers(0, K))] if i % 2 == 0 else \
+                (K, K + 2)[i // 2 % 2]
+            obj = cl.osds[pg.acting[pos]].store._obj("1.0", oid)
+            saved[oid] = (pos, bytes(obj.data))
+            obj.data[int(rng.integers(0, len(obj.data)))] ^= 0x5A
+            bad[oid] = pos
+        # the residency cache serves deep scrub's gathers (a reference
+        # fault, ROADMAP Queue C): the corrupted objects must not be
+        # resident, or the scrub cannot see them
+        require(not (resident_oids(cl.osds[pg.osd.whoami]) & set(bad)),
+                "scrub: a corrupted object is resident")
+        sp0 = scrub_mod.SCRUB_PERF.dump()
+        log.label = "scrub"
+        report = await timed("scrub_deep",
+                             pg.scrubber.scrub(deep=True))
+        flagged = {e.split(":")[0] for e in report["errors"]}
+        require(flagged == set(bad) and report["objects"] == PG_OBJS,
+                f"scrub: flagged {sorted(flagged)}")
+        log.drain("pg scrub")
+        log.label = "repair"
+        fixed = await timed("repair", pg.scrubber.repair())
+        log.drain("pg repair")
+        for oid, pos in bad.items():
+            want = f"{oid}: shard {pos} identified corrupt on " \
+                   f"osd.{pg.acting[pos]}"
+            require(want in fixed["errors_before"],
+                    f"repair: no culprit line for {oid} (position {pos})")
+            require(cl.osds[pg.acting[pos]].store.read("1.0", oid) ==
+                    saved[oid][1], f"repair: {oid}'s shard not restored")
+        require(fixed["repaired"] == PG_SCRUB_OBJS and
+                fixed["errors_after"] == [], f"repair: {fixed['repaired']}"
+                f" repaired, after {fixed['errors_after'][:3]}")
+        sp1 = scrub_mod.SCRUB_PERF.dump()
+        rec["scrub_perf"] = {k: sp1.get(k, 0) - sp0.get(k, 0) for k in (
+            "device_crc_jobs", "device_crc_rows", "host_crc_objects",
+            "device_crc_failures")}
+        n_live = len(pg.live_acting())
+        require(rec["scrub_perf"]["device_crc_jobs"] == 3 * (n_live + 1)
+                and rec["scrub_perf"]["host_crc_objects"] == 0,
+                f"scrub: {rec['scrub_perf']} for {n_live} live shards "
+                f"(one job per sweep and per deep check)")
+        f = cl.osds[pg.acting[K]]
+        smap = {o: json.loads(b) for o, b in
+                scrub_mod.build_scrub_map(f.pgs["1.0"]).items()}
+        for oid in oids:
+            require(smap[oid]["digest"] == zlib.crc32(
+                f.store.read("1.0", oid)), f"scrub map: {oid}'s digest")
+        got = await ops_all(cl, reads(list(bad)), "read after repair")
+        check_reads(got, list(bad), "read after repair")
+        log.drain("pg final reads")
+        torch.cuda.synchronize()
+        launches = log.real.launches
+
+        rec["ec_agg"] = cl.perf_sum("ec_agg", ("batches", "ops", "stripes",
+                                               "bypass") + PG_RINGS_AGG)
+        rec["ec_read_agg"] = cl.perf_sum(
+            "ec_read_agg", ("batches", "ops", "stripes", "bypass") +
+            PG_RINGS_READ_AGG)
+        rec["residency"] = cl.perf_sum("ec_resident", (
+            "hits", "misses", "evictions", "invalidations"))
+        rec["wire"] = cl.wire()
+        rec["up_thru_grants"] = cl.monc.grants
+        rec["epoch"] = cl.osdmap.epoch
+        rec["acting_final"] = cl.primary().acting
+        for name, keys in (("ec_agg", PG_RINGS_AGG),
+                           ("ec_read_agg", PG_RINGS_READ_AGG)):
+            rungs = {k: rec[name][k] for k in keys}
+            require(not any(rungs.values()), f"{name} rungs {rungs}")
+        require(rec["scrub_perf"]["device_crc_failures"] == 0,
+                "scrub: a device CRC job failed")
+        require(card_failures() == failures0,
+                "a recovery rebuild failed on the card")
+        await cl.stop()
+        # -- 34. the breakdown, on a healthy PG of its own (off the path)
+        log.label = "breakdown"
+        rec["breakdown"] = await pg_write_breakdown(
+            mods, profile, config, rng, 16, 128)
+        log.drain("pg breakdown")
+        return launches
+
+    mirror = {oid: bytearray(rng.integers(0, 256, OBJ_SIZE,
+                                          dtype=np.uint8).tobytes())
+              for oid in oids}
+    with GfLaunchLog(kernels) as log:
+        launches = asyncio.run(run(log))
+
+    # -- the kernel at the PG path's shapes --------------------------------
+    ec = factory(f"plugin=jax k={K} m={M} technique=reed_sol_van")
+    bm = ec._encode_kernel.bitmatrix
+    widths = {}
+    for b in (stripes, 1):
+        x = random_bytes((b, K, OBJ_C), SEED + 8 + b)
+        nbytes, ops = roofline.gf_encode_work(b, K, M, OBJ_C)
+        bound_s, bound_by = roofline.bound_seconds(nbytes, ops, spec)
+        widths[f"{b}x{K}x{OBJ_C}"] = {
+            "kernel_device_ms": kernel_device_ms(
+                lambda: kernels.gf_encode(bm, x), 50, "gf_encode_kernel"),
+            "plain_ms": events_ms(lambda: kernels.gf_encode_plain(bm, x),
+                                  5),
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "bytes": nbytes}
+    logical = PG_OBJS * OBJ_SIZE
+    record = {
+        "card": card,
+        "profile": "plugin=jax k=8 m=3 technique=reed_sol_van "
+                   f"stripe_unit={OBJ_C}",
+        "osds": PG_OSDS, "pool_size": K + M, "pool_min_size": K + 1,
+        "objects": PG_OBJS, "object_bytes": OBJ_SIZE,
+        "resident_budget": OBJ_RESIDENT_BYTES,
+        "rmw_ops": PG_RMW_OPS, "host_s": host_s,
+        "write_GiBs": logical / host_s["write"] / gib,
+        "rmw_4k_ops_per_s": PG_RMW_OPS / host_s["rmw"],
+        "read_GiBs": logical / host_s["read"] / gib,
+        "read_resident_GiBs": RESIDENT_OBJS * OBJ_SIZE /
+        host_s["read_resident"] / gib,
+        "degraded_read_GiBs": logical / host_s["read_degraded"] / gib,
+        "recovery_GiBs": PG_OBJS * stripes * OBJ_C / host_s["recovery"] /
+        gib,
+        "scrub_s": host_s["scrub_deep"], "repair_s": host_s["repair"],
+        "gf_encode": {"launches": launches,
+                      "by_operation": log.launches,
+                      "cuda_event_ms_by_operation": log.ms,
+                      "shapes_by_operation": log.shapes,
+                      "checked_against_plain": log.checked,
+                      "max_abs_err": log.worst, "widths": widths},
+        **rec,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    require(launches > 0 and log.launches.get("write") == PG_OBJS,
+            f"pg path: {launches} launches, write "
+            f"{log.launches.get('write')}")
+    print("ec_pg_path: " + json.dumps(record))
+    return launches, log.worst
 
 
 if __name__ == "__main__":
