@@ -23,6 +23,14 @@ imports torch and never jax, nor anything of ``ceph_tpu``.
                             read aggregators, the EC object backend
                             (``ec_backend``: RMW, recovery, scrub,
                             residency), stripe math, the PG log.
+- ``ceph_tpu_torch.mon``    the monitor quorum (store, elector, paxos,
+                            the services, ``Monitor``, ``MonMap``) and
+                            ``MonClient``, whose tracked table maps on
+                            the card.
+- ``ceph_tpu_torch.mgr``    the mgr report session's messages and the
+                            daemons' ``MgrReporter``.
+- ``ceph_tpu_torch.cephfs`` the FSMap the MDSMonitor commits.
+- ``ceph_tpu_torch.msg``    the messenger, auth and wire messages.
 - ``ceph_tpu_torch.os_``    object stores: kv, allocator, MemStore,
                             WALStore, BlueStore (host only).
 - ``ceph_tpu_torch.interop`` the native C++ RS backend (``ref``, ``isa``)
@@ -32,11 +40,13 @@ imports torch and never jax, nor anything of ``ceph_tpu``.
 - ``ceph_tpu_torch.sim``    the churn (rebalance) simulator.
 - ``ceph_tpu_torch.bench``  ``ceph_erasure_code_benchmark``-compatible CLI,
                             ``crushtool``, ``crush_sweep``, ``osdmaptool``,
-                            ``objectstore_tool``, ``ec_streaming`` and
-                            ``ec_daemon_path``.
+                            ``objectstore_tool``, ``ec_streaming``,
+                            ``ec_daemon_path`` and ``dencoder``.
 - ``ceph_tpu_torch.utils``  Device selection, kernel build, timing,
                             bounds, perf counters, logging, the
-                            device-runtime monitor (``devmon``).
+                            device-runtime monitor (``devmon``), the
+                            config registry, the admin socket, crash
+                            reports, tracing, op tracking, throttles.
 - ``ceph_tpu_torch/csrc``   CUDA sources, built by ``utils.cuda_build``.
 
 Entry points run on CUDA unless the caller asks for the CPU.

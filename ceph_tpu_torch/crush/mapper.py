@@ -121,6 +121,13 @@ class _MapTensors:
             cw, cids, _, _, _ = choose_args
             self.cw, self.cids = on(cw), on(cids)
         self.lnt = kernels.ln_table_t(device)
+        # the pack's host-to-device staging, as the reference's Mapper
+        # records it (the process-cached crush_ln table is left out)
+        self.staged = sum(int(t.nbytes) for t in (
+            self.items, self.weights, self.cumw, self.straws,
+            self.tree_nodes, self.tree_num, self.size, self.alg,
+            self.btype, self.bid, self.devw, self.cw, self.cids)
+            if t is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -659,6 +666,8 @@ class Mapper:
         self.device_weights = np.asarray(device_weights, dtype=np.int64)
         self.T = _MapTensors(self.packed, self.device, self.device_weights,
                              self._cargs)
+        _devmon().record_h2d(self.T.staged)
+        _devmon().note_staging(self.T.staged)
         self._plans: dict[int, kernels.PlanTensors | None] = {}
 
     # -- engine selection ----------------------------------------------------

@@ -1,3 +1,8 @@
-"""The monitor's side of the port. Only the wire messages are here so
-far (``mon/messages.py``, which the PG's up_thru request needs); the
-monitor daemons come with the OSD daemon."""
+"""The monitor tier of the port: the quorum (``Monitor``, ``MonMap``,
+``MonitorDBStore``), its services and ``MonClient``. ``Monitor`` and
+``MonClient`` decode maps onto the card unless given ``device="cpu"``."""
+from ceph_tpu_torch.mon.client import MonClient
+from ceph_tpu_torch.mon.monitor import Monitor, MonMap
+from ceph_tpu_torch.mon.store import MonitorDBStore
+
+__all__ = ["Monitor", "MonMap", "MonClient", "MonitorDBStore"]

@@ -21,6 +21,14 @@ POOL_TYPE_ERASURE = 3     # ref: pg_pool_t::TYPE_ERASURE
 
 FLAG_HASHPSPOOL = 1 << 2  # ref: pg_pool_t::FLAG_HASHPSPOOL
 
+# pool fullness flags (ref: pg_pool_t::FLAG_FULL / FLAG_FULL_QUOTA):
+# FULL is the operator/mon "no more writes to this pool" bit;
+# FULL_QUOTA is set by the mon's quota sweep when the pool's aggregate
+# usage crosses quota_bytes/quota_objects and cleared by the same sweep
+# once usage drops or the quota is raised.
+FLAG_POOL_FULL = 1 << 1
+FLAG_POOL_FULL_QUOTA = 1 << 10
+
 # last_backfill watermark bounds (ref: hobject_t::get_max / is_max —
 # pg_info_t.last_backfill). Backfill scans the collection in plain
 # string-sorted object-name order; "" (MIN) sorts before every name and
@@ -127,6 +135,12 @@ class PGPool:
         """Replicated sets compact over holes; EC sets are positional
         (ref: pg_pool_t::can_shift_osds)."""
         return self.is_replicated()
+
+    def is_full(self) -> bool:
+        """Writes to this pool must park/fail (ref: pg_pool_t::has_flag
+        FLAG_FULL|FLAG_FULL_QUOTA checks in
+        Objecter::target_should_be_paused)."""
+        return bool(self.flags & (FLAG_POOL_FULL | FLAG_POOL_FULL_QUOTA))
 
     def is_merge_source(self, seed: int) -> bool:
         """Is this PG folded away by the pending pg_num decrease?

@@ -9,10 +9,9 @@ counted as slow (ref: OpTracker::check_ops_in_flight).
 Ages and event offsets are measured on ``time.monotonic()`` — a
 wall-clock jump (NTP step, suspend) must not age every in-flight op
 into a SLOW_OPS storm or make durations run backwards. One wall-clock
-``initiated_at`` stamp is kept for display only. The history depth and
-the complaint threshold default to the registered values of
-``osd_op_history_size`` (20) and ``osd_op_complaint_time`` (30 s); the
-config registry itself comes with the OSD daemon.
+``initiated_at`` stamp is kept for display only. Defaults for the
+history depth and the complaint threshold come from the registered
+``osd_op_history_size`` / ``osd_op_complaint_time`` config options.
 
 The port's copy of ``ceph_tpu/utils/op_tracker.py``.
 """
@@ -21,6 +20,14 @@ from __future__ import annotations
 
 import time
 from collections import deque
+
+
+def _opt_default(name: str, fallback):
+    try:
+        from ceph_tpu_torch.utils.config import global_config
+        return global_config().get(name)
+    except Exception:
+        return fallback
 
 
 class TrackedOp:
@@ -62,9 +69,10 @@ class OpTracker:
     def __init__(self, history_size: int | None = None,
                  slow_op_warn_s: float | None = None):
         if history_size is None:
-            history_size = 20
+            history_size = int(_opt_default("osd_op_history_size", 20))
         if slow_op_warn_s is None:
-            slow_op_warn_s = 30.0
+            slow_op_warn_s = float(
+                _opt_default("osd_op_complaint_time", 30.0))
         self.inflight: dict[int, TrackedOp] = {}
         self.history: deque[TrackedOp] = deque(maxlen=history_size)
         self.slow_op_warn_s = slow_op_warn_s

@@ -27,9 +27,7 @@ MTraceReport for clients); the mon pools them and the mgr
 TracingModule reassembles cross-daemon traces by trace_id
 (``ceph trace ls`` / ``ceph trace show <trace_id>``).
 
-The port's copy of ``ceph_tpu/utils/tracing.py``. A knob missing from
-the daemon's config dict takes its registered default, written beside
-its read; the config registry comes with the OSD daemon.
+The port's copy of ``ceph_tpu/utils/tracing.py``.
 """
 
 from __future__ import annotations
@@ -120,8 +118,8 @@ class Tracer:
     """Per-daemon span factory + bounded completed-span buffers.
 
     Knobs are read LIVE from the daemon's config dict (falling back to
-    the registered defaults, which are the ``_get`` defaults below), so
-    `config set` style runtime changes apply to the next op."""
+    the registered utils.config defaults), so `config set` style
+    runtime changes apply to the next op."""
 
     def __init__(self, service: str, config: dict | None = None):
         self.service = service
@@ -136,7 +134,13 @@ class Tracer:
 
     # -- knobs -------------------------------------------------------------
     def _get(self, name: str, default):
-        return self.config.get(name, default)
+        if name in self.config:
+            return self.config[name]
+        try:
+            from ceph_tpu_torch.utils.config import global_config
+            return global_config().get(name)
+        except Exception:
+            return default
 
     def sampling_rate(self) -> float:
         return float(self._get("trace_sampling_rate", 0.0))

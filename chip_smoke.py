@@ -73,6 +73,39 @@ on the same pool of CPU processes), the crush_straw2 launch count set to
    bytes survive the round trip; ``crushtool -i``/``-o`` round-trips the
    canonical map byte for byte. One ``placement_epochs`` JSON line.
 
+Then the monitor quorum, at full width (``mon_path_phase``, on the same
+pool of CPU processes): the placement-epochs map written as epoch 1 into
+three ``WALDB`` stores (``ceph-mon --mkfs --osdmap``), three ``Monitor``s
+in a spawned process of their own (crc mode, the registry's timers; it
+reports elections, commits, wire bytes and its own crush_straw2
+launches), and one ``MonClient`` in this process with ``track_mapping``
+on the card. Every crush_straw2 launch of the phase, in either process,
+is held against its plain version by the same hook; the count is set to
+0 just before the client subscribes and read from its map handling:
+
+35. Build: the client's first map builds both pools' tables on the card
+   (one kernel launch, both pools swept); the whole table equals a
+   from-scratch sweep.
+36. A stream of 18 map changes through ``MonClient.command`` (down, out,
+   in, reweight down and up, primary affinity with a tuner's provenance
+   set and cleared, pg-upmap-items set and cleared on both pools, a
+   crush bucket-weight edit through ``osd setcrushmap``) and an
+   ``MOSDBoot`` for each up, the leader stopped halfway: each change
+   takes its kind's path, its rows and 4,096 sampled rows per pool equal
+   a from-scratch sweep, and the whole table does at the first, middle
+   and last change. The other two mons elect a leader and the client
+   hunts to it.
+37. Balancer traffic: 64 concurrent ``osd pg-upmap-items``; commits/s and
+   the time until the client's table holds all 64. The mons' commits so
+   far launched no kernel and moved no byte to the card (their devmon).
+38. ``osd map`` of 256 seeded names from the leader (its kernel on its
+   card) equals the client's table rows.
+39. The last epoch: the whole table equals a from-scratch sweep, 1,024
+   PGs per pool equal ``mapper_ref`` + the pipeline, and ``osd getmap``
+   is byte-equal on both surviving mons and the client's map.
+40. The client's epochs are contiguous; no election beyond the quorum's
+   forming and the failover's. One ``mon_path`` JSON line.
+
 Then the OSD's erasure-code data plane, at full width (k=8 m=3,
 ``reed_sol_van``; ``ec_plane_phases``), each path driven with the
 gf_encode launch count set to 0 just before it and read just after:
@@ -401,9 +434,12 @@ def main() -> None:
     with multiprocessing.get_context("spawn").Pool(8) as pool:
         crush = crush_phases(spec, pool)
         placement_launches = placement_epochs_phase(card, pool)
+        mon_launches, mon_worst = mon_path_phase(card, pool)
     crush["launches_by_path"] = {"crush_main": crush["launches"],
-                                 "placement_epochs": placement_launches}
-    crush["launches"] += placement_launches
+                                 "placement_epochs": placement_launches,
+                                 "mon_path": mon_launches}
+    crush["launches"] += placement_launches + mon_launches
+    crush["max_abs_err"] = max(crush["max_abs_err"], mon_worst)
     by_path = {"encode_decode": launches}
     plane_launches, err_plane = ec_plane_phases(ec, enc_bm, dec_bm, card,
                                                 spec)
@@ -1380,6 +1416,42 @@ class LaunchLog:
         self.pending.clear()
 
 
+def scratch_rows(om, pid, rows):
+    """The five tables' ``rows`` of pool ``pid``, swept from scratch."""
+    p = om.pools[pid]
+    seeds = np.asarray(rows, dtype=np.uint32)
+    craw, pps = om.pg_to_crush_osds(pid, seeds)
+    return (craw, *om._pipeline_from_crush(p, seeds, craw, pps))
+
+
+def table_rows_vs_scratch(om, mm, pid, rows, what) -> int:
+    """Require the table's ``rows`` of pool ``pid`` to equal a
+    from-scratch sweep on ``om``; returns how many rows were checked."""
+    rows = np.unique(np.asarray(rows, dtype=np.int64))
+    t = mm._pools[pid]
+    for name, want in zip(TABLES, scratch_rows(om, pid, rows)):
+        require(np.array_equal(getattr(t, name)[rows], want),
+                f"{what}: pool {pid} {name} differs from a from-scratch "
+                f"sweep")
+    return len(rows)
+
+
+def touched_rows(old: dict, t, osds, named, rng) -> np.ndarray:
+    """The rows an epoch update had to touch (any table changed, or the
+    old or new CRUSH output names one of ``osds``), the ``named`` seeds
+    and EPOCH_SAMPLE sampled rows."""
+    moved = np.zeros(len(t.craw), dtype=bool)
+    for n in TABLES:
+        a, b = old[n], getattr(t, n)
+        moved |= (a != b) if a.ndim == 1 else (a != b).any(axis=1)
+    if osds:
+        ol = np.asarray(sorted(osds))
+        moved |= np.isin(old["craw"], ol).any(axis=1)
+        moved |= np.isin(t.craw, ol).any(axis=1)
+    return np.concatenate([np.flatnonzero(moved), named, rng.choice(
+        len(t.craw), EPOCH_SAMPLE, replace=False)])
+
+
 def _kind_parts(kind: str) -> tuple[str, str, bool]:
     """'pg_temp2_rm' -> ('pg_temp', '2', True): the change, which victim
     or pool it names (pool 2 for '2'), and whether it clears one."""
@@ -1530,21 +1602,6 @@ def placement_epochs_phase(card: str, pool) -> int:
     rng = np.random.default_rng(SEED + 4)
     t_phase = time.perf_counter()
 
-    def scratch(pid, rows):
-        p = om.pools[pid]
-        seeds = np.asarray(rows, dtype=np.uint32)
-        craw, pps = om.pg_to_crush_osds(pid, seeds)
-        return (craw, *om._pipeline_from_crush(p, seeds, craw, pps))
-
-    def check_rows(pid, rows, what):
-        rows = np.unique(np.asarray(rows, dtype=np.int64))
-        t = mm._pools[pid]
-        for name, want in zip(TABLES, scratch(pid, rows)):
-            require(np.array_equal(getattr(t, name)[rows], want),
-                    f"{what}: pool {pid} {name} differs from a "
-                    f"from-scratch sweep")
-        return len(rows)
-
     with LaunchLog(kernels) as log:
         # -- 17. build ---------------------------------------------------
         torch.cuda.synchronize()
@@ -1604,30 +1661,19 @@ def placement_epochs_phase(card: str, pool) -> int:
                 set(inc.new_weight) | set(inc.new_primary_affinity)
             checked = 0
             for pid, pool_ in om.pools.items():
-                t = mm._pools[pid]
                 if mm.last_full_sweep_pools or i in full_at:
                     rows = np.arange(pool_.pg_num)
                 else:
-                    moved = np.zeros(pool_.pg_num, dtype=bool)
-                    for n in TABLES:
-                        a, b = old[pid][n], getattr(t, n)
-                        moved |= (a != b) if a.ndim == 1 else \
-                            (a != b).any(axis=1)
-                    if osds:
-                        ol = np.asarray(sorted(osds))
-                        moved |= np.isin(old[pid]["craw"], ol).any(axis=1)
-                        moved |= np.isin(t.craw, ol).any(axis=1)
                     named = [pg.seed for d in (
                         inc.new_pg_temp, inc.new_primary_temp,
                         inc.new_pg_upmap_items) for pg in d
                         if pg.pool == pid] + [
                         pg.seed for pg in inc.old_pg_upmap_items
                         if pg.pool == pid]
-                    rows = np.concatenate([
-                        np.flatnonzero(moved), named,
-                        rng.choice(pool_.pg_num, EPOCH_SAMPLE,
-                                   replace=False)])
-                checked += check_rows(pid, rows, f"epoch {i} {kind}")
+                    rows = touched_rows(old[pid], mm._pools[pid], osds,
+                                        named, rng)
+                checked += table_rows_vs_scratch(om, mm, pid, rows,
+                                                 f"epoch {i} {kind}")
             log.drain(f"epoch {i} {kind}")
             n_full += bool(mm.last_full_sweep_pools)
             print(f"[{card}] epoch {om.epoch} {kind}: update {dt:.4f} s, "
@@ -1687,7 +1733,7 @@ def placement_epochs_phase(card: str, pool) -> int:
                 == 16, f"memo: {om.mapping_cache_misses - misses0} misses, "
                        f"{memo_launches} launches after the incremental")
         for pid in om.pools:
-            want = scratch(pid, np.arange(16))[1:]     # less craw
+            want = scratch_rows(om, pid, np.arange(16))[1:]   # less craw
             for s in range(16):
                 for a, b in zip(got[pid][s], want):
                     require(np.array_equal(np.asarray(a)[0], b[s]),
@@ -1791,6 +1837,662 @@ def placement_epochs_phase(card: str, pool) -> int:
     }
     print("placement_epochs: " + json.dumps(record))
     return main_launches
+
+
+# -- the monitor quorum: three mons in a process of their own --------------
+#
+# ``ceph-mon`` is a process of its own. A full-sweep table update holds the
+# client's event loop for about a second on the card, which would starve
+# the mons' leases if they shared it, so the smoke spawns the three mons
+# into one process and talks to it over a pipe: it reports elections,
+# commits, wire bytes and its own crush_straw2 launches (the leader's
+# ``osd map``), each held against the plain version by the same hook.
+
+MON_NAMES = ("a", "b", "c")
+MON_BALANCER = 64                      # concurrent pg-upmap-items commands
+MON_OBJECTS = 256                      # `osd map` names, half per pool
+# the stream of map changes, each through the mon as a user would send it
+# (``osd ...`` commands, an MOSDBoot for an up); the leader is stopped
+# before MON_FAILOVER_AT. pg_temp and primary_temp have no command in the
+# reference mon, so the stream has none.
+# The affinity is restored before the failover: a tuner's lease lives in
+# the leader's memory, so a new leader heals a leased affinity back to
+# 1.0 on its first sweep, an epoch no command asked for.
+MON_KINDS = ("down", "out", "affinity", "upmap", "reweight", "down2",
+             "boot2", "upmap2", "affinity_rm", "crush", "in", "upmap_rm",
+             "boot", "reweight_in", "upmap2_rm", "down3", "out3",
+             "reweight_half")
+MON_FAILOVER_AT = len(MON_KINDS) // 2 + 1       # before "in"
+MON_FULL_SWEEP = {"crush", "in", "reweight_in"}
+TUNER = {"policy": "chip_smoke", "mode": "drive", "action": "act"}
+
+
+def mon_server(conn, dirs) -> None:
+    """Entry point of the mon process: three ``Monitor``s on their seeded
+    ``WALDB`` stores, driven by requests on ``conn`` until "shutdown"."""
+    import traceback
+    try:
+        asyncio.run(_mon_server(conn, dirs))
+    except Exception:
+        conn.send(("error", traceback.format_exc()))
+
+
+async def _mon_server(conn, dirs) -> None:
+    from ceph_tpu_torch.crush import kernels
+    from ceph_tpu_torch.mon import Monitor, MonitorDBStore, MonMap
+    from ceph_tpu_torch.utils import device as devsel
+    from ceph_tpu_torch.utils.config import OPTIONS
+    from ceph_tpu_torch.utils.devmon import devmon
+
+    # the process takes its device before the mons start, as a daemon
+    # does at boot: the context's creation would otherwise hold the
+    # leader's loop past the peons' lease at the first `osd map`
+    torch.zeros(1, device=devsel.resolve())
+    # the registry's timers (Monitor falls back to the same values)
+    config = {k: OPTIONS[k].default
+              for k in ("mon_election_timeout", "mon_lease")}
+    monmap = MonMap()
+    for rank, name in enumerate(MON_NAMES):
+        monmap.add(name, rank, "127.0.0.1", 0)
+    mons, stores, wins, commits = [], [], [], {}
+
+    def watch(mon):
+        win, apply = mon.win_election, mon.apply_paxos_value
+
+        async def counted_win(epoch, quorum):
+            wins.append((time.monotonic(), mon.name, list(quorum)))
+            await win(epoch, quorum)
+
+        def stamped_apply(version, value):
+            commits.setdefault(mon.name, []).append(time.monotonic())
+            apply(version, value)
+        mon.win_election, mon.apply_paxos_value = counted_win, stamped_apply
+
+    with LaunchLog(kernels) as log:
+        log.main = True                # the leader's `osd map`
+        for rank, (name, path) in enumerate(zip(MON_NAMES, dirs)):
+            store = MonitorDBStore(path=path)
+            mon = Monitor(name, monmap, store=store, config=dict(config))
+            addr = await mon.msgr.bind("127.0.0.1", 0)
+            monmap.mons[name] = (rank, addr.host, addr.port)
+            watch(mon)
+            mons.append(mon)
+            stores.append(store)
+        for mon in mons:
+            mon._tick_task = asyncio.ensure_future(mon._tick_loop())
+            mon.start_mgr_reporting()
+        await asyncio.gather(*(mon.elector.start() for mon in mons))
+        conn.send(("ready", monmap.encode()))
+
+        def stats() -> dict:
+            log.drain("mon osd map")
+            live = [m for m in mons if not m._stopped]
+            leader = next((m for m in live if m.is_leader()), None)
+            wire = {}
+            for m in mons:
+                for k, v in m.msgr.wire.items():
+                    wire[k] = wire.get(k, 0) + v
+            return {
+                "leader": leader.name if leader else None,
+                "quorum": leader.quorum if leader else [],
+                "active": bool(leader and leader.paxos.active),
+                "elections": wins,
+                "last_committed": {m.name: m.paxos.last_committed
+                                   for m in live},
+                "paxos_commits": {m.name: m.perf.dump()["paxos_commits"]
+                                  for m in mons},
+                "commit_times": commits,
+                "wire": wire,
+                "launches": log.real.launches,
+                "lanes": sum(log.main_lanes),
+                "cuda_event_ms": log.main_ms,
+                "checked": log.checked,
+                "max_abs_err": log.worst,
+                "h2d_bytes": devmon().perf.dump()["h2d_bytes"],
+            }
+
+        while True:
+            if not conn.poll():
+                await asyncio.sleep(0.005)
+                continue
+            op = conn.recv()
+            if op == "stats":
+                conn.send(("stats", stats()))
+            elif op == "stop_leader":
+                leader = next(m for m in mons if m.is_leader())
+                t_stop = time.monotonic()
+                await leader.stop()
+                conn.send(("stopped", leader.name, t_stop))
+            elif op == "getmap":
+                out = {}
+                for m in mons:
+                    if not m._stopped:
+                        _, _, out[m.name] = await m.handle_command(
+                            {"prefix": "osd getmap"})
+                conn.send(("getmap", out))
+            elif op == "shutdown":
+                for m in mons:
+                    if not m._stopped:
+                        await m.stop()
+                for s in stores:
+                    s.close()
+                conn.send(("bye",))
+                return
+
+
+class MonProcess:
+    """The parent's end of the mon process: spawn, request, stop."""
+
+    def __init__(self, dirs):
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=mon_server, args=(child, dirs),
+                                daemon=True)
+        self.proc.start()
+
+    async def reply(self, timeout: float = 120.0):
+        t0 = time.monotonic()
+        while not self.conn.poll():
+            require(self.proc.is_alive() or self.conn.poll(),
+                    "mon_path: the mon process died")
+            require(time.monotonic() - t0 < timeout,
+                    "mon_path: the mon process did not answer")
+            await asyncio.sleep(0.005)
+        msg = self.conn.recv()
+        require(msg[0] != "error", f"mon_path: the mon process failed:\n"
+                                   f"{msg[-1]}")
+        return msg
+
+    async def ask(self, op: str, timeout: float = 120.0):
+        self.conn.send(op)
+        return await self.reply(timeout)
+
+    def close(self) -> None:
+        self.proc.join(timeout=30)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(timeout=10)
+
+
+def seed_mon_stores(dirs, osdmap) -> None:
+    """``ceph-mon --mkfs --osdmap``: epoch 1 of ``osdmap`` written into
+    each mon's store before start."""
+    from ceph_tpu_torch.encoding import encode_osdmap
+    from ceph_tpu_torch.mon import MonitorDBStore
+    osdmap.epoch = 1
+    blob = encode_osdmap(osdmap)
+    for path in dirs:
+        store = MonitorDBStore(path=path)
+        t = store.transaction()
+        t.set("osdmap", f"full_{1:08x}", blob)
+        store.put_u64(t, "osdmap", "last_epoch", 1)
+        store.apply(t)
+        store.close()
+
+
+def mon_path_phase(card: str, pool) -> tuple[int, int]:
+    """The monitor quorum on the card (phases 35-40): three mons commit
+    map changes on the 10,240-OSD map and a tracked ``MonClient`` keeps
+    its placement table on the card. Returns the crush_straw2 launches of
+    the path (the client's table and the leader's ``osd map``) and the
+    largest difference of any launch from the plain version."""
+    import os
+    import tempfile
+
+    from ceph_tpu_torch.bench import crush_sweep
+    from ceph_tpu_torch.crush import builder, kernels
+    from ceph_tpu_torch.crush.types import ITEM_NONE, WEIGHT_ONE
+    from ceph_tpu_torch.encoding import (decode_crush_map, encode_crush_map,
+                                         encode_osdmap)
+    from ceph_tpu_torch.mon import MonClient, MonMap
+    from ceph_tpu_torch.mon.messages import MOSDBoot
+    from ceph_tpu_torch.osd.osdmap import OSDMap
+    from ceph_tpu_torch.osd.types import (POOL_TYPE_ERASURE, ObjectLocator,
+                                          PGPool, pg_t)
+    from ceph_tpu_torch.utils.devmon import DeviceRuntimeMonitor
+
+    crush = crush_sweep.canonical_map(10240)
+    ec_rule = builder.add_simple_rule(crush, crush.rules[0].steps[0].arg1,
+                                      builder.TYPE_HOST, indep=True)
+    seed_map = OSDMap(crush, device="cpu")         # only encoded
+    seed_map.add_pool(PGPool(id=1, pg_num=PG_NUM, size=3, crush_rule=0,
+                             name="rbd"))
+    seed_map.add_pool(PGPool(id=2, pg_num=EC_PG_NUM, size=K + M,
+                             min_size=K + 1, type=POOL_TYPE_ERASURE,
+                             crush_rule=ec_rule,
+                             erasure_code_profile=f"k={K} m={M}",
+                             name="ec"))
+    rng = np.random.default_rng(SEED + 9)
+    dm = DeviceRuntimeMonitor(name="mon_path_devmon", register=False)
+    out_dir = os.path.join("build", "mon_path")
+    os.makedirs(out_dir, exist_ok=True)
+    t_phase = time.perf_counter()
+
+    async def drive(tmp, log):
+        dirs = [os.path.join(tmp, f"mon.{n}") for n in MON_NAMES]
+        seed_mon_stores(dirs, seed_map)
+        mp = MonProcess(dirs)
+        try:
+            _, mm_blob = await mp.reply(timeout=300.0)
+            t0 = time.monotonic()
+            while True:
+                s = (await mp.ask("stats"))[1]
+                if s["active"] and len(s["quorum"]) == len(MON_NAMES):
+                    break
+                require(time.monotonic() - t0 < 60, f"mon_path: no quorum "
+                                                    f"of three: {s}")
+                await asyncio.sleep(0.05)
+            rec = {"startup_elections": len(s["elections"]),
+                   "quorum_formed_s": time.monotonic() - t0}
+            mc = MonClient("client.admin", MonMap.decode(mm_blob))
+            try:
+                return await run_stream(mp, mc, s, rec, log)
+            finally:
+                await mc.shutdown()
+        finally:
+            try:
+                await mp.ask("shutdown", timeout=60)
+            finally:
+                mp.close()
+
+    def track(mc, log) -> list:
+        """Keep the client's table on the card and log each map message
+        it handles: times, epochs, the table's launches and path."""
+        mc.track_mapping = True
+        mc.mapping_devmon = dm
+        arrivals = []
+        orig = mc._handle_osdmap
+
+        async def handled(m):
+            # the table's update is the path: its launches are counted
+            # here, and nothing else runs while it does (no await)
+            before = mc.osdmap.epoch if mc.osdmap is not None else 0
+            n0 = log.real.launches
+            log.main = True
+            t_in = time.monotonic()
+            try:
+                await orig(m)
+            finally:
+                log.main = False
+            arrivals.append({
+                "t_in": t_in, "t_out": time.monotonic(), "before": before,
+                "after": mc.osdmap.epoch, "full": sorted(m.full),
+                "incs": sorted(m.incrementals),
+                "launches": log.real.launches - n0,
+                "full_sweep_pools": mc.mapping_table.last_full_sweep_pools})
+        mc._handle_osdmap = handled
+        return arrivals
+
+    def at(mc, epoch) -> bool:
+        return mc.osdmap is not None and mc.osdmap.epoch >= epoch and \
+            mc.mapping_table is not None and mc.mapping_table.epoch >= epoch
+
+    async def table_at(mc, arrivals, epoch, what, timeout=120.0):
+        t0 = time.monotonic()
+        while not at(mc, epoch):
+            require(time.monotonic() - t0 < timeout,
+                    f"mon_path: {what}: the client's table never reached "
+                    f"epoch {epoch}")
+            await asyncio.sleep(0.002)
+        return next(a for a in arrivals if a["after"] >= epoch)
+
+    async def command(mc, cmd, inbl=b""):
+        ret, rs, out = await mc.command(cmd, inbl, timeout=120.0)
+        require(ret == 0, f"mon_path: {cmd} -> {ret} {rs}")
+        return out
+
+    async def run_stream(mp, mc, s0, rec, log):
+        arrivals = track(mc, log)
+        # -- 35. build -------------------------------------------------------
+        torch.cuda.synchronize()
+        log.real.launches = 0
+        await mc.subscribe("osdmap", 0)
+        build = await table_at(mc, arrivals, 1, "build")
+        om, mm = mc.osdmap, mc.mapping_table
+        require(build["full_sweep_pools"] == 2 and build["launches"] == 1,
+                f"mon_path build: {build['launches']} launches, "
+                f"{build['full_sweep_pools']} pools swept")
+        require(encode_osdmap(om) == encode_osdmap(seed_map),
+                "mon_path: the client's first map is not the seeded one")
+        for pid, p in om.pools.items():
+            table_rows_vs_scratch(om, mm, pid, np.arange(p.pg_num),
+                                  "mon_path build")
+        log.drain("mon_path build")
+        rec["build_s"] = build["t_out"] - build["t_in"]
+        rec["engines"] = {pid: om.serving_mapper(pid).mapping_path(
+            p.crush_rule, p.size) for pid, p in om.pools.items()}
+        print(f"[{card}] mon_path: quorum of {len(MON_NAMES)} in "
+              f"{rec['quorum_formed_s']:.2f} s; the client built "
+              f"{PG_NUM} + {EC_PG_NUM} PGs in {rec['build_s']:.3f} s "
+              f"(engines {rec['engines']})")
+
+        # -- 36. the stream of map changes -----------------------------------
+        st, per_kind, failover = {}, {}, {}
+
+        def fresh_osd():
+            while True:
+                o = int(rng.integers(0, om.max_osd))
+                if o not in st.values():
+                    return o
+        full_at = {0, MON_FAILOVER_AT - 1, len(MON_KINDS) - 1}
+        for i, kind in enumerate(MON_KINDS):
+            om, mm = mc.osdmap, mc.mapping_table
+            if i == MON_FAILOVER_AT:
+                _, name, t_stop = await mp.ask("stop_leader")
+                failover = {"stopped": name, "t_stop": t_stop}
+            base, tag, rm = _kind_parts(kind)
+            pid = 2 if tag == "2" else 1
+            old = {p: {n: getattr(mm._pools[p], n).copy() for n in TABLES}
+                   for p in om.pools}
+            target = om.epoch + 1
+            named, osds = [], set()
+            t_send = time.monotonic()
+            t_ack = None
+            if base == "boot":
+                # an OSD re-announces its boot until its map says up (a
+                # peon forwards to the leader it knows, which may be gone)
+                osd = st["v" + tag]
+                osds.add(osd)
+                while not at(mc, target):
+                    require(time.monotonic() - t_send < 120, f"mon_path "
+                            f"{kind}: osd.{osd}'s boot never committed")
+                    await mc.send_report(MOSDBoot(
+                        osd=osd, addr_host="127.0.0.1",
+                        addr_port=6800 + osd, hb_port=6900 + osd,
+                        boot_epoch=om.epoch))
+                    t_wait = time.monotonic()
+                    while not at(mc, target) and \
+                            time.monotonic() - t_wait < 1.0:
+                        await asyncio.sleep(0.002)
+            else:
+                if base in ("down", "out", "in"):
+                    if base == "down":
+                        st["v" + tag] = fresh_osd()
+                    osd = st["v" + tag]
+                    cmd = {"prefix": f"osd {base}", "id": osd}
+                elif base.startswith("reweight"):
+                    if base == "reweight":
+                        st["r"] = osd = fresh_osd()
+                        w = 1 / 3
+                    elif base == "reweight_in":
+                        osd, w = st["r"], 1.0
+                    else:
+                        osd, w = fresh_osd(), 0.5
+                    cmd = {"prefix": "osd reweight", "id": osd,
+                           "weight": w}
+                elif base == "affinity":
+                    if not rm:
+                        st["a"] = fresh_osd()
+                    osd = st["a"]
+                    # a tuner's write (with provenance) holds; an
+                    # operator's is healed back by the leader's next
+                    # slow-OSD sweep (ROADMAP Queue C)
+                    cmd = {"prefix": "osd primary-affinity", "id": osd,
+                           "weight": 1.0 if rm else 0.0,
+                           "provenance": TUNER}
+                elif base == "upmap":
+                    seed = 123 + pid
+                    named.append((pid, seed))
+                    if rm:
+                        cmd = {"prefix": "osd rm-pg-upmap-items",
+                               "pgid": f"{pid}.{seed:x}"}
+                    else:
+                        frm = int(mm._pools[pid].up[seed][0])
+                        cmd = {"prefix": "osd pg-upmap-items",
+                               "pgid": f"{pid}.{seed:x}",
+                               "mappings": [frm, fresh_osd()]}
+                    osd = None
+                elif base == "crush":
+                    blob = await command(mc, {"prefix": "osd getcrushmap"})
+                    edited = decode_crush_map(blob)
+                    st["c"] = osd = fresh_osd()
+                    builder.adjust_item_weight(edited, osd, 2 * WEIGHT_ONE)
+                    t_send = time.monotonic()
+                    cmd = {"prefix": "osd setcrushmap"}
+                    inbl = encode_crush_map(edited)
+                else:
+                    raise ValueError(kind)
+                if osd is not None:
+                    osds.add(osd)
+                await command(mc, cmd, inbl if base == "crush" else b"")
+                t_ack = time.monotonic()
+            arr = await table_at(mc, arrivals, target, kind)
+            om, mm = mc.osdmap, mc.mapping_table
+            require(arr["after"] == target and arr["before"] == target - 1,
+                    f"mon_path {kind}: the client went from epoch "
+                    f"{arr['before']} to {arr['after']}, want {target}")
+            want_full = len(om.pools) if kind in MON_FULL_SWEEP else 0
+            require(arr["full_sweep_pools"] == want_full,
+                    f"mon_path {kind}: {arr['full_sweep_pools']} pools "
+                    f"re-swept, want {want_full}")
+            checked = 0
+            for p, pool_ in om.pools.items():
+                rows = np.arange(pool_.pg_num) if want_full or \
+                    i in full_at else touched_rows(
+                        old[p], mm._pools[p], osds,
+                        [s for q, s in named if q == p], rng)
+                checked += table_rows_vs_scratch(om, mm, p, rows,
+                                                 f"mon_path {kind}")
+            log.drain(f"mon_path {kind}")
+            key = base + "_rm" * rm
+            r = per_kind.setdefault(key, {"to_table_s": [], "commit_s": [],
+                                          "update_s": [], "launches": 0,
+                                          "full_sweep_pools": 0})
+            r["to_table_s"].append(arr["t_out"] - t_send)
+            r["commit_s"].append((t_ack if t_ack is not None else
+                                  arr["t_in"]) - t_send)
+            r["update_s"].append(arr["t_out"] - arr["t_in"])
+            r["launches"] += arr["launches"]
+            r["full_sweep_pools"] += arr["full_sweep_pools"]
+            if i == MON_FAILOVER_AT:
+                failover["t_client_epoch"] = arr["t_out"]
+            print(f"[{card}] mon_path epoch {target} {kind}: to the table "
+                  f"{arr['t_out'] - t_send:.4f} s (update "
+                  f"{arr['t_out'] - arr['t_in']:.4f} s), "
+                  f"{arr['full_sweep_pools']} pools re-swept, "
+                  f"{arr['launches']} launches; {checked} rows equal a "
+                  f"from-scratch sweep")
+        s1 = (await mp.ask("stats"))[1]
+        new_leader = s1["leader"]
+        require(new_leader is not None and new_leader != failover["stopped"]
+                and len(s1["quorum"]) == len(MON_NAMES) - 1,
+                f"mon_path failover: leader {new_leader}, quorum "
+                f"{s1['quorum']}")
+        after_stop = [t for t in s1["commit_times"].get(new_leader, [])
+                      if t > failover["t_stop"]]
+        wins_after = [w for w in s1["elections"][len(s0["elections"]):]]
+        failover.update({
+            "new_leader": new_leader,
+            "to_new_leader_s": wins_after[0][0] - failover["t_stop"]
+            if wins_after else None,
+            "to_first_commit_s": after_stop[0] - failover["t_stop"],
+            "to_client_epoch_s": failover["t_client_epoch"] -
+            failover["t_stop"]})
+
+        # -- 37. balancer traffic --------------------------------------------
+        om, mm = mc.osdmap, mc.mapping_table
+        e0 = om.epoch
+        seeds = rng.choice(PG_NUM, MON_BALANCER, replace=False)
+        cmds = []
+        for seed in seeds:
+            row = [int(o) for o in mm._pools[1].up[seed]]
+            to = next(o for o in (int(x) for x in rng.integers(
+                0, om.max_osd, 16)) if o not in row)
+            cmds.append({"prefix": "osd pg-upmap-items",
+                         "pgid": f"1.{int(seed):x}",
+                         "mappings": [row[0], to]})
+        t0 = time.monotonic()
+        await asyncio.gather(*(command(mc, c) for c in cmds))
+        t_acked = time.monotonic()
+        last = await table_at(mc, arrivals, e0 + MON_BALANCER, "balancer")
+        om, mm = mc.osdmap, mc.mapping_table
+        require(all(om.pg_upmap_items.get(pg_t.parse(c["pgid"])) ==
+                    [tuple(c["mappings"])] for c in cmds),
+                "mon_path balancer: an upmap item is missing from the map")
+        table_rows_vs_scratch(om, mm, 1, seeds, "mon_path balancer")
+        require(all(int(mm._pools[1].up[s][0]) == c["mappings"][1]
+                    for s, c in zip(seeds, cmds)),
+                "mon_path balancer: a row does not hold its upmap target")
+        log.drain("mon_path balancer")
+        balancer = {"commands": MON_BALANCER,
+                    "commits_per_s": MON_BALANCER / (t_acked - t0),
+                    "to_table_s": last["t_out"] - t0,
+                    "launches": sum(a["launches"] for a in arrivals
+                                    if a["t_in"] >= t0)}
+        print(f"[{card}] mon_path balancer: {MON_BALANCER} concurrent "
+              f"pg-upmap-items at {balancer['commits_per_s']:.1f} commits/s"
+              f", all in the client's table after "
+              f"{balancer['to_table_s']:.3f} s")
+        s2 = (await mp.ask("stats"))[1]
+        require(s2["launches"] == s0["launches"] == 0 and
+                s2["h2d_bytes"] == s0["h2d_bytes"],
+                f"mon_path: the mons' commits launched {s2['launches']} "
+                f"kernels or moved {s2['h2d_bytes'] - s0['h2d_bytes']} "
+                f"bytes to the card")
+
+        # -- 38. `osd map` from the leader -----------------------------------
+        names = [f"rbd_data.{int(x):016x}" for x in
+                 rng.integers(0, 1 << 62, MON_OBJECTS)]
+        t0 = time.monotonic()
+        for j, name in enumerate(names):
+            pid = 1 + j % 2
+            got = json.loads(await command(mc, {
+                "prefix": "osd map", "pool": om.pools[pid].name,
+                "object": name}))
+            p = om.pools[pid]
+            pg = om.object_locator_to_pg(name, ObjectLocator(pool=pid))
+            seed = int(p.raw_pg_to_pg(np.asarray([pg.seed]), xp=np)[0])
+            t = mm._pools[pid]
+            want = {"pgid": f"{pid}.{seed:x}",
+                    "up": [int(o) for o in t.up[seed] if o != ITEM_NONE],
+                    "up_primary": int(t.up_primary[seed]),
+                    "acting": [int(o) for o in t.acting[seed]
+                               if o != ITEM_NONE],
+                    "acting_primary": int(t.acting_primary[seed])}
+            require(got == want, f"mon_path osd map {name}: the leader "
+                                 f"says {got}, the client's table {want}")
+        osd_map_s = time.monotonic() - t0
+        s3 = (await mp.ask("stats"))[1]
+        require(s3["launches"] > 0 and s3["max_abs_err"] == 0,
+                f"mon_path: the leader's `osd map` launched "
+                f"{s3['launches']} kernels")
+        print(f"[{card}] mon_path: `osd map` of {MON_OBJECTS} names from "
+              f"the leader equals the client's table ({s3['launches']} "
+              f"one-lane launches on the leader, equal to the plain "
+              f"version)")
+
+        # -- 39. the last epoch ----------------------------------------------
+        w = om._device_weights().tolist()
+        for pid, pool_ in om.pools.items():
+            table_rows_vs_scratch(om, mm, pid, np.arange(pool_.pg_num),
+                                  "mon_path last epoch")
+            pick = np.linspace(0, pool_.pg_num - 1,
+                               SCALAR_SAMPLE).astype(np.int64)
+            pseeds = pick.astype(np.uint32)
+            pps = pool_.raw_pg_to_pps(pseeds)
+            raw = scalar_map(pool, om.crush, pool_.crush_rule, pps,
+                             pool_.size, w).astype(np.int32)
+            want = (raw, *om._pipeline_from_crush(pool_, pseeds, raw, pps))
+            t = mm._pools[pid]
+            for name, wv in zip(TABLES, want):
+                require(np.array_equal(getattr(t, name)[pick], wv),
+                        f"mon_path last epoch: pool {pid} {name} differs "
+                        f"from mapper_ref + pipeline")
+        log.drain("mon_path last epoch")
+        t0 = time.monotonic()
+        while True:
+            s4 = (await mp.ask("stats"))[1]
+            if len(set(s4["last_committed"].values())) == 1:
+                break
+            require(time.monotonic() - t0 < 30, f"mon_path: the surviving "
+                    f"mons disagree: {s4['last_committed']}")
+            await asyncio.sleep(0.05)
+        maps = (await mp.ask("getmap"))[1]
+        mine = encode_osdmap(om)
+        fetched = await command(mc, {"prefix": "osd getmap"})
+        require(len(maps) == len(MON_NAMES) - 1 and
+                all(b == mine for b in maps.values()) and fetched == mine,
+                "mon_path: `osd getmap` differs between the surviving mons "
+                "and the client's map")
+        print(f"[{card}] mon_path: the last epoch's whole table equals a "
+              f"from-scratch sweep, {SCALAR_SAMPLE} PGs per pool equal "
+              f"mapper_ref + the pipeline, and `osd getmap` is the same "
+              f"{len(mine)} bytes on both surviving mons and the client")
+
+        # -- 40. epochs, elections, health -------------------------------------
+        covered, jumps = set(), 0
+        for a in arrivals:
+            lo = a["before"]
+            if a["full"] and max(a["full"]) > lo:
+                jumps += lo != 0 and max(a["full"]) > lo + 1
+                lo = max(a["full"])
+                covered.add(lo)
+            covered |= {e for e in a["incs"] if lo < e <= a["after"]}
+        first, last_e = min(covered), max(covered)
+        require(covered == set(range(first, last_e + 1)) and not jumps
+                and last_e == om.epoch,
+                f"mon_path: the client's epochs skip "
+                f"{sorted(set(range(first, last_e + 1)) - covered)[:8]}")
+        elections = len(s4["elections"]) - rec["startup_elections"]
+        require(elections == 1, f"mon_path: {elections} elections after "
+                                f"the quorum formed, want 1 (the failover):"
+                                f" {s4['elections']}, leader stopped at "
+                                f"{failover['t_stop']}")
+        d = dm.perf.dump()
+        require(d["path_checks"] > 0 and not d["path_mismatch"],
+                f"mon_path: devmon {d}")
+        main_launches = sum(a["launches"] for a in arrivals)
+        wire = dict(s4["wire"])
+        for k, v in mc.msgr.wire.items():
+            wire[k] = wire.get(k, 0) + v
+        kinds = {}
+        for k, r in per_kind.items():
+            out = {"epochs": len(r["to_table_s"]),
+                   "launches": r["launches"],
+                   "full_sweep_pools": r["full_sweep_pools"]}
+            for part in ("to_table_s", "commit_s", "update_s"):
+                v = sorted(r[part])
+                out[part + "_median"] = v[len(v) // 2]
+                out[part + "_max"] = v[-1]
+            kinds[k] = out
+        rec.update({
+            "card": card, "mons": len(MON_NAMES), "osds": om.max_osd,
+            "pools": {pid: {"pg_num": p.pg_num, "size": p.size,
+                            "engine": rec["engines"][pid]}
+                      for pid, p in om.pools.items()},
+            "epochs": om.epoch, "by_kind": kinds, "failover": {
+                k: v for k, v in failover.items() if not k.startswith("t_")},
+            "balancer": balancer, "osd_map_s": osd_map_s,
+            "elections": {"to_form_quorum": rec["startup_elections"],
+                          "after": elections},
+            "paxos_commits": s4["paxos_commits"],
+            "last_committed": s4["last_committed"],
+            "wire": wire,
+            "commit_moves_nothing": {
+                "mon_launches": s2["launches"],
+                "mon_h2d_bytes": s2["h2d_bytes"] - s0["h2d_bytes"],
+                "commits": sum(s2["paxos_commits"].values()) -
+                sum(s0["paxos_commits"].values())},
+            "crush_straw2": {
+                "client_launches": main_launches,
+                "client_lanes": sum(log.main_lanes),
+                "client_cuda_event_ms": log.main_ms,
+                "mon_launches": s4["launches"],
+                "mon_lanes": s4["lanes"],
+                "mon_cuda_event_ms": s4["cuda_event_ms"],
+                "checked_against_plain": log.checked + s4["checked"],
+                "max_abs_err": max(log.worst, s4["max_abs_err"])},
+            "getmap_bytes": len(mine),
+        })
+        return rec, main_launches + s4["launches"], \
+            max(log.worst, s4["max_abs_err"])
+
+    with LaunchLog(kernels) as log, tempfile.TemporaryDirectory(
+            dir=out_dir) as tmp:
+        rec, launches, worst = asyncio.run(drive(tmp, log))
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print("mon_path: " + json.dumps(rec))
+    return launches, worst
 
 
 # -- the PG path's harness: one OSD facade per OSD, over one map ------------
