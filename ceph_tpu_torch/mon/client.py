@@ -10,8 +10,8 @@ The port's copy of ``ceph_tpu/mon/client.py``. A ``MonClient`` decodes
 the maps it follows onto ``device`` (CUDA unless ``device="cpu"``; it
 raises without a card), so with ``track_mapping`` its table's sweeps and
 delta remaps run the CRUSH kernel there. The reference's
-``mapping_mesh`` (a sharded sweep) and ``mapping_tracer`` (spans around
-the sweeps) are left out: the port's ``OSDMapMapping`` takes neither yet.
+``mapping_mesh`` (a sharded sweep) is left out: the port's
+``OSDMapMapping`` takes no mesh yet (ROADMAP Queue A, multi-device).
 """
 
 from __future__ import annotations
@@ -74,6 +74,9 @@ class MonClient(Dispatcher):
         # table instead of re-running the mapper every epoch
         self.track_mapping = False
         self._mapping = None
+        # optional Tracer for the tracked table (crush_sweep spans);
+        # the owning daemon sets it before the first tracked map
+        self.mapping_tracer = None
         # the owning daemon's DeviceRuntimeMonitor (round 14):
         # tracked-table sweeps record per-daemon kernel-path health
         self.mapping_devmon = None
@@ -229,6 +232,7 @@ class MonClient(Dispatcher):
             if self._mapping is None:
                 from ceph_tpu_torch.osd.osdmap_mapping import OSDMapMapping
                 self._mapping = OSDMapMapping(
+                    tracer=self.mapping_tracer,
                     devmon=self.mapping_devmon)
             self._mapping.update(self.osdmap)
             self.osdmap.attach_mapping(self._mapping)

@@ -21,10 +21,13 @@ architecture mapped onto asyncio instead of epoll threads:
 The reference's throttles (Policy::throttler_bytes) become a bytes
 semaphore gating dispatch of incoming messages.
 
-The port's copy of ``ceph_tpu/msg/messenger.py``, with one addition:
+The port's copy of ``ceph_tpu/msg/messenger.py``, with two changes:
 each ``Messenger`` counts the frames and bytes it sends and receives
-after the handshake (``Messenger.wire``). The wire format is the
-reference's, so the two packages' messengers talk to each other.
+after the handshake (``Messenger.wire``), and a handshake that finishes
+after ``shutdown`` began is closed instead of registered (the
+reference's registers it, and the session outlives its messenger). The
+wire format is the reference's, so the two packages' messengers talk to
+each other.
 """
 
 from __future__ import annotations
@@ -416,6 +419,9 @@ class Messenger:
         self.addr: EntityAddr | None = None
         self.throttle: Throttle | None = None
         self._accepted: set[Connection] = set()
+        # set by shutdown(): a handshake still in flight when the
+        # listener closes must not register a session afterwards
+        self._shut = False
         # frames and bytes this messenger put on and took off the wire
         # after the handshake (length prefix, header, body, trailer)
         self.wire = {"tx_frames": 0, "tx_bytes": 0,
@@ -507,6 +513,7 @@ class Messenger:
 
     async def bind(self, host: str = "127.0.0.1",
                    port: int = 0) -> EntityAddr:
+        self._shut = False
         self._server = await asyncio.start_server(self._accept, host, port)
         sock = self._server.sockets[0]
         self.addr = EntityAddr(*sock.getsockname()[:2])
@@ -524,6 +531,12 @@ class Messenger:
                 asyncio.IncompleteReadError, asyncio.TimeoutError) as e:
             log.dout(5, f"accept failed: {e}")
             writer.close()
+            return
+        if self._shut:
+            # the handshake finished after shutdown() began: a session
+            # registered now would outlive the messenger and answer its
+            # peers (a dead OSD's heartbeat replies)
+            await conn.close()
             return
         self._accepted.add(conn)
         self._index_conn(conn)
@@ -775,6 +788,7 @@ class Messenger:
 
     # -- teardown ----------------------------------------------------------
     async def shutdown(self) -> None:
+        self._shut = True
         if self.keyring is not None:
             self.keyring.remove_observer(self)
         if self._server:

@@ -89,11 +89,17 @@ class ECPG(PG):
     def __init__(self, osd, pool, pgid):
         super().__init__(osd, pool, pgid)
         # "jax" is the registry's name for the Reed-Solomon plugin
-        # (ErasureCodeTorch here); it runs on CUDA unless the profile
-        # names device=cpu
+        # (ErasureCodeTorch here). The pool's profile is cluster state
+        # (committed into the osdmap, equal to the reference's bytes),
+        # so the device comes from the OSD that hosts this PG; a host
+        # without one (a test harness) leaves it to the profile, whose
+        # default is CUDA
         prof = dict(pool.extra.get("profile") or
                     {"k": 2, "m": 1, "plugin": "jax"})
         prof.setdefault("plugin", "jax")
+        dev = getattr(osd, "device", None)
+        if dev is not None:
+            prof["device"] = str(dev)
         self.ec = ec_factory(prof)
         self.k = self.ec.get_data_chunk_count()
         self.m = self.ec.get_coding_chunk_count()

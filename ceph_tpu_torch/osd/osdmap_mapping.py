@@ -62,8 +62,8 @@ byte-identical to a from-scratch ``pg_to_crush_osds`` +
 
 Left out: the device mesh (``mesh``/``mesh_min_batch``, the sharded
 full sweep and its ``last_sharded_sweeps`` count; ROADMAP Queue A,
-multi-device) and the ``tracer`` span around bulk sweeps, which waits for
-the tracing module.
+multi-device). With a ``tracer`` every full-pool sweep emits a
+``crush_sweep`` span.
 """
 
 from __future__ import annotations
@@ -93,8 +93,13 @@ class OSDMapMapping:
     """Per-pool pg->(raw CRUSH, up, up_primary, acting, acting_primary)
     arrays at one epoch, plus the snapshots the delta diff needs."""
 
-    def __init__(self, osdmap: OSDMap | None = None, devmon=None):
+    def __init__(self, osdmap: OSDMap | None = None, tracer=None,
+                 devmon=None):
         self.epoch = -1
+        # optional utils.tracing.Tracer: bulk sweeps emit a
+        # `crush_sweep` span (n_pgs/path/n_devices tags) so sweep cost
+        # shows up in `trace show` instead of as opaque mapper time
+        self.tracer = tracer
         # optional utils.devmon.DeviceRuntimeMonitor: the owning daemon's
         # monitor. Every full-pool sweep records its per-call engine
         # (launches by path) and an expected-vs-actual check, so a daemon
@@ -162,8 +167,22 @@ class OSDMapMapping:
     def _sweep_pool(self, osdmap: OSDMap, pid: int) -> None:
         pool = osdmap.pools[pid]
         seeds = np.arange(pool.pg_num, dtype=np.uint32)
-        craw, pps, (expected, path) = \
-            osdmap.pg_to_crush_osds_path(pid, seeds)
+        span = self.tracer.start_root(
+            "crush_sweep", tags={"n_pgs": int(pool.pg_num),
+                                 "pool": int(pid), "n_devices": 1},
+        ) if self.tracer is not None else None
+        path = expected = None
+        ok = False
+        try:
+            craw, pps, (expected, path) = \
+                osdmap.pg_to_crush_osds_path(pid, seeds)
+            ok = True
+        finally:
+            # a failed sweep lands in the trace buffer too; the engine
+            # tag is this call's returned path
+            if span is not None:
+                span.tag("path", (path or "?") if ok else "error")
+                span.finish()
         craw = np.array(craw)    # writable: delta remap patches rows
         if self.devmon is not None:
             # per-daemon kernel-path health: engine launch counter +

@@ -23,10 +23,8 @@ The pg log + per-object versions persist in the collection's
 ``_pgmeta_`` object (ref: pgmeta_oid omap), so a restarted OSD
 re-peers from durable state.
 
-The port's copy of ``ceph_tpu/osd/pg.py``, less the client backoff path,
-which comes with the OSD daemon (see ``PG.release_backoffs``). Peering
-does not retry a ``RecoveryDeviceError``: an EC rebuild that failed on
-the card.
+The port's copy of ``ceph_tpu/osd/pg.py``. Peering does not retry a
+``RecoveryDeviceError``: an EC rebuild that failed on the card.
 """
 
 from __future__ import annotations
@@ -393,15 +391,51 @@ class PG:
                         les=self.last_epoch_started, activate=0)))
 
     # -- client backoffs (ref: PG::add_backoff/release_backoffs) ---------
-    # The backoff path (``send_backoff``, the UNBLOCK sends and the
-    # daemon's OVERLOAD_PERF counters, ``ceph_tpu/osd/pg.py:389-445``)
-    # comes with the OSD daemon, which is the only caller that asserts a
-    # backoff. Until then ``self.backoffs`` stays empty.
+    async def send_backoff(self, m: MOSDOp) -> None:
+        """BLOCK the whole PG range for this op's client instead of
+        queueing while we are not active / saturated; the op itself is
+        dropped (the parked Objecter resends after UNBLOCK)."""
+        from ceph_tpu_torch.osd.daemon import OVERLOAD_PERF
+        from ceph_tpu_torch.osd.messages import BACKOFF_OP_BLOCK, MOSDBackoff
+        ent = self.backoffs.get(m.src)
+        if ent is None:
+            ent = [self.osd.next_tid(), m.conn]
+            self.backoffs[m.src] = ent
+        else:
+            ent[1] = m.conn               # freshest connection wins
+        OVERLOAD_PERF.inc("backoffs_sent")
+        try:
+            await m.conn.send_message(MOSDBackoff(
+                op=BACKOFF_OP_BLOCK, id=ent[0], pool=self.pgid.pool,
+                seed=self.pgid.seed, begin=MIN_OID, end=MAX_OID,
+                epoch=self.epoch, from_osd=self.osd.whoami))
+        except Exception:
+            pass          # client's backoff self-heal covers the loss
+
     def release_backoffs(self) -> None:
         """UNBLOCK every asserted backoff (activation, drain, or this
-        OSD ceasing to be the primary). Nothing asserts one in this
-        package yet, so there is nothing to send."""
+        OSD ceasing to be the primary — a new primary owes the client
+        nothing, so it must stop waiting on us)."""
+        if not self.backoffs:
+            return
+        from ceph_tpu_torch.osd.daemon import OVERLOAD_PERF
+        from ceph_tpu_torch.osd.messages import BACKOFF_OP_UNBLOCK, \
+            MOSDBackoff
+        released = list(self.backoffs.items())
         self.backoffs = {}
+
+        async def _send(bid, conn):
+            OVERLOAD_PERF.inc("backoffs_released")
+            try:
+                await conn.send_message(MOSDBackoff(
+                    op=BACKOFF_OP_UNBLOCK, id=bid,
+                    pool=self.pgid.pool, seed=self.pgid.seed,
+                    begin=MIN_OID, end=MAX_OID, epoch=self.epoch,
+                    from_osd=self.osd.whoami))
+            except Exception:
+                pass
+        for _src, (bid, conn) in released:
+            asyncio.ensure_future(_send(bid, conn))
 
     def reassert_backoffs(self) -> None:
         """Interval change while still primary: the blocked clients

@@ -17,7 +17,11 @@ the mon's pgmap -> HEALTH checks.
 The port's copy of ``ceph_tpu/osd/scrub.py``. The sweep's digests and
 deep scrub's parity digests are ``ec/crc.device_row_crcs`` jobs on the
 PG plugin's device; a failed job falls back to host zlib only for a
-plugin on the CPU, and on the card it is counted and raised.
+plugin on the CPU, and on the card it is counted and raised. One
+departure from the reference: an EC repair drops the repaired object
+from the primary's residency cache, where the deep check's gather may
+have pinned the corrupt shard's bytes (the reference keeps serving them
+to client reads after the repair; ROADMAP Queue C).
 """
 
 from __future__ import annotations
@@ -303,6 +307,13 @@ class Scrubber:
                 # (decode + re-encode — _backfill_push_acked builds
                 # the shard push itself and fails cleanly on None)
                 ok = await pg._backfill_push_acked(oid, osd)
+                cache = getattr(pg.osd, "ec_resident", None)
+                if ok and cache is not None:
+                    # the deep check's gather may have pinned the bad
+                    # shard's bytes under the object's unchanged
+                    # version; drop them, or client reads (and the
+                    # verify pass below) are served the corruption
+                    cache.invalidate(str(pg.cid), oid)
             elif osd == pg.osd.whoami:
                 # the PRIMARY holds the bad copy: pull the majority
                 # copy over it, then it can re-author replicas

@@ -36,8 +36,8 @@ registered in the process collection) is what ``ec.torch_plugin``,
 ``ec.crc`` and ``crush.mapper`` report through.
 
 Left out for now: ``launches_sharded`` (the multi-device sweep is not
-ported) and ``attach_tracer`` (a ``jit_compile`` span per first call),
-which needs the tracing module.
+ported). :meth:`DeviceRuntimeMonitor.attach_tracer` takes the owning
+daemon's tracer: every first launch then emits one ``jit_compile`` span.
 """
 
 from __future__ import annotations
@@ -199,6 +199,7 @@ class DeviceRuntimeMonitor:
                              "streaming-encode pipelines that fell "
                              "back to the unpipelined path")
             .create_perf_counters(register=register))
+        self.tracer = None           # utils.tracing.Tracer | None
         self._lock = threading.Lock()
         # insertion-ordered: eviction at _WARM_MAX pops oldest only
         self._warm: dict[tuple, None] = {}
@@ -208,6 +209,14 @@ class DeviceRuntimeMonitor:
         self.last_mismatch: dict | None = None
         # quarantine token -> "quarantined"|"reprobing"|"permanent"
         self._quarantine: dict = {}
+
+    # -- wiring ------------------------------------------------------------
+    def attach_tracer(self, tracer) -> None:
+        """Attach the owning daemon's Tracer: every first launch emits
+        one ``jit_compile`` span through it (in a process of many
+        daemons the last attach wins: one span per first launch either
+        way, never zero, never two)."""
+        self.tracer = tracer
 
     # -- first-launch accounting -------------------------------------------
     def jit_call(self, fn_name: str, key, fn, *args):
@@ -270,6 +279,18 @@ class DeviceRuntimeMonitor:
             ent["seconds"] = round(ent["seconds"] + seconds, 6)
             ent["last_key"] = str(key)[:120]
             ent["last_seconds"] = round(seconds, 6)
+        tracer = self.tracer
+        if tracer is not None:
+            # a real Span assembled after the fact: the trace id is
+            # minted directly (head sampling must not drop it) and the
+            # start is back-dated so the span's wall is the first call's
+            from ceph_tpu_torch.utils.tracing import Span, new_trace_id
+            s = Span(tracer, "jit_compile", new_trace_id(),
+                     tags={"fn": fn_name, "key": str(key)[:120]})
+            s.start -= seconds
+            s.duration = seconds
+            s.finished = True
+            tracer.record(s)
 
     # -- kernel-path health ------------------------------------------------
     def expected_engine(self, plan_path: str | None) -> str:

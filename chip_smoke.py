@@ -201,6 +201,49 @@ One ``ec_pg_path`` JSON line gives the host-clock rates, the launches
 and CUDA-event milliseconds by operation, the aggregator, residency,
 scrub and wire counters, the breakdown and the card.
 
+Then the OSD daemon and the dev cluster, at full width
+(``osd_cluster_path_phase``, after the mon path, on the same pool of CPU
+processes): an erasure-coded RBD deployment as Ceph documents it. A
+``vstart`` cluster of three mons and twelve OSD daemons, one process
+each (the proc backend: WALStores, crc-mode messengers, ``DEFAULT_CFG``
+with the proc backend's timers, a 256 MiB residency budget per OSD; the
+OSDs and the client on the card, the mons on the CPU as on hosts of
+their own), serves a client's ``rados`` ops through the objecter. Each
+daemon runs under ``chip_smoke.py --proc-child``, which puts the same
+hooks around both kernels in its process and answers ``smoke *`` verbs
+on its admin socket; every gf_encode and crush_straw2 launch of the
+phase is timed (CUDA events) and held against its plain version there,
+each daemon's counts start at 0 with its process and the client's are
+set to 0 just before the cluster starts:
+
+41. A k=8 m=3 ``reed_sol_van`` profile (``crush-failure-domain=host``,
+   ``stripe_unit`` 4096) and an ``erasure`` pool of 32 PGs on it, and a
+   replicated size-3 pool of 32 PGs (the image metadata); clean. Every
+   ECPG's plugin and every residency cache is on the card.
+42. ``rados bench``'s defaults: 128 objects of 4 MiB written, 16 in
+   flight, and 128 header objects of 4 KiB with an xattr and two omap
+   keys; all 128 read back, 16 in flight, equal to a host mirror.
+43. 256 4 KiB overwrites at seeded 4 KiB-aligned offsets, 16 in flight.
+44. Two OSDs hard-stopped; the seconds until the mon marks both down
+   from the heartbeat reports.
+45. All 128 objects read degraded (PGs that lost two shards decode two
+   erasures) and 64 more overwrites.
+46. One OSD revived (log recovery), the other ``osd out`` (backfill onto
+   the spare); the seconds to clean and the bytes pushed.
+47. One shard of 16 objects corrupted in its OSD's store, none of them
+   resident in its primary's cache; ``pg repair`` of each PG until every
+   shard is restored.
+48. Everything read back equal to the mirror; every PG clean; every
+   ladder rung and ``*_device_failures`` counter 0; markdowns only of
+   the two stopped OSDs and no election after the quorum formed; every
+   OSD's tracked table equal, and one's equal to ``mapper_ref`` + the
+   post-CRUSH pipeline on every PG of both pools. One
+   ``osd_cluster_path`` JSON line gives the rates, the launches and
+   CUDA-event ms of both kernels by step, the aggregators' stripes and
+   distinct PGs per flush, residency, scheduler grants, epochs,
+   markdowns, elections, wire bytes and the client's one-PG lookups
+   per epoch.
+
 Last: one JSON line listing both kernels, then the card from
 nvidia-smi, then the last line ``{"ok": true, "device": {...}}``.
 
@@ -254,7 +297,10 @@ NATIVE_STRIPES = 1024
 LAYER_OBJS = 16                        # objects per lrc/shec profile
 # the EC PG path: one PG of a k=8 m=3 pool (size 11, min_size 9) on 12
 # OSD facades, 11 acting and one spare, the object path's objects
-PG_OSDS, PG_OBJS = 12, 128     # 256 ran past the phase's ~90 s (PERF.md §4)
+# 256 ran past the phase's ~90 s; at 64 the 256 MiB residency budget
+# holds every object and the degraded reads decode nothing (PERF.md
+# section 4)
+PG_OSDS, PG_OBJS = 12, 128
 PG_RMW_OPS = 256                       # 4 KiB partial writes
 PG_SCRUB_OBJS = PG_NATIVE_OBJS = 16
 OBJ_RESERVE_LARGE, OBJ_RESERVE_SMALL = 4 << 30, 512 << 20
@@ -435,11 +481,15 @@ def main() -> None:
         crush = crush_phases(spec, pool)
         placement_launches = placement_epochs_phase(card, pool)
         mon_launches, mon_worst = mon_path_phase(card, pool)
+        cluster = osd_cluster_path_phase(card, pool)
     crush["launches_by_path"] = {"crush_main": crush["launches"],
                                  "placement_epochs": placement_launches,
-                                 "mon_path": mon_launches}
-    crush["launches"] += placement_launches + mon_launches
-    crush["max_abs_err"] = max(crush["max_abs_err"], mon_worst)
+                                 "mon_path": mon_launches,
+                                 "osd_cluster_path": cluster["crush"][0]}
+    crush["launches"] += placement_launches + mon_launches + \
+        cluster["crush"][0]
+    crush["max_abs_err"] = max(crush["max_abs_err"], mon_worst,
+                               cluster["crush"][1])
     by_path = {"encode_decode": launches}
     plane_launches, err_plane = ec_plane_phases(ec, enc_bm, dec_bm, card,
                                                 spec)
@@ -448,6 +498,7 @@ def main() -> None:
     obj_launches, err_obj = ec_object_path_phase(registry, card, spec)
     by_path.update(obj_launches)
     by_path["ec_pg_path"], err_pg = ec_pg_path_phase(card, spec)
+    by_path["osd_cluster_path"] = cluster["gf"][0]
     print(f"gf_encode launches by path: {json.dumps(by_path)}")
 
     # -- result ----------------------------------------------------------------
@@ -458,7 +509,8 @@ def main() -> None:
         "replaces": "ceph_tpu/gf/pallas_kernels.py:168",
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
-        "max_abs_err": max(err_enc, err_dec, err_plane, err_obj, err_pg),
+        "max_abs_err": max(err_enc, err_dec, err_plane, err_obj, err_pg,
+                           cluster["gf"][1]),
         "ms": enc_ms,
         "plain_ms": plain_enc_ms,
         "bound_ms": enc_bound_s * 1e3,
@@ -1924,8 +1976,23 @@ async def _mon_server(conn, dirs) -> None:
         await asyncio.gather(*(mon.elector.start() for mon in mons))
         conn.send(("ready", monmap.encode()))
 
+        checks = {"s": 0.0, "max_s": 0.0}
+
+        async def drain() -> None:
+            # one launch's plain check at a time, yielding between them:
+            # the three mons share this loop, and 128 checks in one go
+            # can hold it past the peons' 1 s lease
+            pending, log.pending = log.pending, []
+            for item in pending:
+                t0 = time.perf_counter()
+                log.pending = [item]
+                log.drain("mon osd map")
+                dt = time.perf_counter() - t0
+                checks["s"] += dt
+                checks["max_s"] = max(checks["max_s"], dt)
+                await asyncio.sleep(0)
+
         def stats() -> dict:
-            log.drain("mon osd map")
             live = [m for m in mons if not m._stopped]
             leader = next((m for m in live if m.is_leader()), None)
             wire = {}
@@ -1949,6 +2016,7 @@ async def _mon_server(conn, dirs) -> None:
                 "checked": log.checked,
                 "max_abs_err": log.worst,
                 "h2d_bytes": devmon().perf.dump()["h2d_bytes"],
+                "check_s": dict(checks),
             }
 
         while True:
@@ -1957,6 +2025,7 @@ async def _mon_server(conn, dirs) -> None:
                 continue
             op = conn.recv()
             if op == "stats":
+                await drain()
                 conn.send(("stats", stats()))
             elif op == "stop_leader":
                 leader = next(m for m in mons if m.is_leader())
@@ -2379,7 +2448,9 @@ def mon_path_phase(card: str, pool) -> tuple[int, int]:
         print(f"[{card}] mon_path: `osd map` of {MON_OBJECTS} names from "
               f"the leader equals the client's table ({s3['launches']} "
               f"one-lane launches on the leader, equal to the plain "
-              f"version)")
+              f"version; their checks took {s3['check_s']['s']:.3f} s of "
+              f"the mons' loop, {s3['check_s']['max_s']:.4f} s at most "
+              f"at a time)")
 
         # -- 39. the last epoch ----------------------------------------------
         w = om._device_weights().tolist()
@@ -3357,5 +3428,981 @@ def ec_pg_path_phase(card: str, spec) -> tuple[int, int]:
     return launches, log.worst
 
 
+# -- the OSD daemon and the dev cluster (osd_cluster_path) -------------------
+# An erasure-coded RBD deployment as Ceph documents it: a k=8 m=3 data pool
+# and a replicated size-3 pool for the image metadata (`rbd create
+# --data-pool`), on 12 OSD daemons (one per host) under three mons, one
+# process per daemon as a deployment runs them (`ceph-osd` per process).
+CL_MONS, CL_OSDS = 3, 12
+# mon_target_pg_per_osd 100 x 12 OSDs / 11 shards is 128; cut to 32, as
+# clean took over 60 s on the card's host at 128 (PERF.md section 4)
+CL_EC_PGS = 32
+CL_REP_PGS = 32
+CL_OBJS, CL_HDRS, CL_HDR = 128, 128, 4096   # rados bench -b 4M; RBD headers
+CL_INFLIGHT = 16                            # rados bench -t 16
+CL_RMW, CL_DEG_RMW = 256, 64                # 4 KiB overwrites
+CL_CORRUPT = 16
+CL_KILL = (2, 9)      # hard-stopped; the first revives, the second goes out
+CL_DEADLINE = 300.0   # the longest wait on any one step (an upper bound)
+# `pg repair` is asked of a PG at most this often, each ask waited on up
+# to CL_REPAIR_WAIT s for the primary's repair scrub to report
+CL_REPAIR_ASKS, CL_REPAIR_WAIT = 3, 60.0
+CL_LOG = "build/osd_cluster_path.log"   # the daemons' own output
+CHILD_SCRIPT = __file__                         # what each daemon runs
+# over the proc backend's timers (vstart's DEFAULT_CFG with PROC_CFG)
+CL_CONFIG = {"osd_ec_resident_bytes": OBJ_RESIDENT_BYTES,
+             # the cell's own `osd out` (step 46) is the out: no auto-out
+             # of the hard-stopped OSDs while the cell reads degraded
+             "mon_osd_down_out_interval": 600.0}
+
+
+class StepLaunchLog(LaunchLog):
+    """``LaunchLog`` with every launch filed under the current ``label``
+    (its count, lanes and CUDA-event ms by step)."""
+
+    def __init__(self, kernels):
+        super().__init__(kernels)
+        self.label = None
+        self.n = 0
+        self.by_label = {}
+
+    def launch(self, pt, xs, numrep):
+        self.main = self.label or "unlabelled"
+        self.n += 1
+        return super().launch(pt, xs, numrep)
+
+    def drain(self, what: str) -> None:
+        for _pt, xs, _nr, _lv, _bad, start, end, label in self.pending:
+            end.synchronize()
+            ent = self.by_label.setdefault(label, {"launches": 0,
+                                                   "lanes": 0, "ms": 0.0})
+            ent["launches"] += 1
+            ent["lanes"] += int(xs.shape[0])
+            ent["ms"] += start.elapsed_time(end)
+        super().drain(what)
+
+
+class FlushLog:
+    """Every flush of an OSD's ``ECAggregator`` and ``ECReadAggregator``:
+    its ops, stripes and distinct PGs (each ``ECPG`` owns its own plugin
+    instance, so the plugins an op batch came from are its PGs), filed
+    under the current ``label`` as ``rows[kind][label]``."""
+
+    def __init__(self):
+        from ceph_tpu_torch.osd import ec_aggregator, ec_read_aggregator
+        self.classes = (ec_aggregator.ECAggregator,
+                        ec_read_aggregator.ECReadAggregator)
+        self.label = None
+        self.owner = {}
+        self.rows = {}
+        self.saved = []
+
+    def __enter__(self):
+        agg, ragg = self.classes
+        owner = self.owner
+        enc, dec = agg.encode, ragg.decode
+
+        async def encode(this, ec, data, with_crc=False):
+            data = np.ascontiguousarray(data, dtype=np.uint8)
+            owner[id(data)] = id(ec)
+            try:
+                return await enc(this, ec, data, with_crc)
+            finally:
+                owner.pop(id(data), None)
+
+        async def decode(this, ec, want, avail, chunks, charge_bytes=0):
+            chunks = np.ascontiguousarray(chunks, dtype=np.uint8)
+            owner[id(chunks)] = id(ec)
+            try:
+                return await dec(this, ec, want, avail, chunks,
+                                 charge_bytes)
+            finally:
+                owner.pop(id(chunks), None)
+
+        def flusher(cls, kind, field):
+            real = cls._flush
+
+            def _flush(this, key, g, trigger):
+                if g.entries:
+                    arrs = [getattr(e, field) for e in g.entries]
+                    self.rows.setdefault(kind, {}).setdefault(
+                        str(self.label), []).append(
+                        [len(arrs), sum(int(a.shape[0]) for a in arrs),
+                         len({owner.get(id(a)) for a in arrs})])
+                return real(this, key, g, trigger)
+            return real, _flush
+
+        self.saved = [(agg, "encode", enc), (ragg, "decode", dec)]
+        agg.encode, ragg.decode = encode, decode
+        for cls, kind, field in ((agg, "ec_agg", "data"),
+                                 (ragg, "ec_read_agg", "chunks")):
+            real, fl = flusher(cls, kind, field)
+            self.saved.append((cls, "_flush", real))
+            cls._flush = fl
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, real in self.saved:
+            setattr(cls, name, real)
+
+
+def flush_summary(rows: dict) -> dict:
+    """``FlushLog.rows`` (merged over daemons) -> per kind and step:
+    flushes, ops and stripes, their means per flush, and the distinct
+    PGs per flush (mean, max, and how many flushes held more than one)."""
+    out = {}
+    for kind, by_label in sorted(rows.items()):
+        for label, rs in sorted(by_label.items()):
+            pgs = [r[2] for r in rs]
+            out.setdefault(kind, {})[label] = {
+                "flushes": len(rs), "ops": sum(r[0] for r in rs),
+                "stripes": sum(r[1] for r in rs),
+                "ops_per_flush": sum(r[0] for r in rs) / len(rs),
+                "stripes_per_flush": sum(r[1] for r in rs) / len(rs),
+                "distinct_pgs_per_flush": sum(pgs) / len(pgs),
+                "max_distinct_pgs": max(pgs),
+                "flushes_with_many_pgs": sum(p > 1 for p in pgs)}
+    return out
+
+
+def proc_child(argv: list) -> None:
+    """A daemon of the ``osd_cluster_path`` cluster, in a process of its
+    own (``chip_smoke.py --proc-child`` + ``ceph_tpu_torch.cluster.proc``'s
+    arguments). It runs the port's child entry point with the phase's
+    hooks around both kernels and both aggregators, and adds ``smoke *``
+    verbs to the daemon's admin socket: the step label, the launches
+    held against their plain versions, counters, the tracked table, the
+    residency cache's objects, and a shard's bytes."""
+    import os
+    # seconds from the parent's spawn (its wall clock, passed down)
+    t_start = float(os.environ.get("CHIP_SMOKE_SPAWNED", time.time()))
+    from ceph_tpu_torch.cluster import proc
+    from ceph_tpu_torch.crush import kernels as ckern
+    from ceph_tpu_torch.gf import kernels as gkern
+    from ceph_tpu_torch.mon.monitor import Monitor
+    from ceph_tpu_torch.os_.objectstore import Transaction
+    from ceph_tpu_torch.osd import daemon, pg as pg_mod
+    from ceph_tpu_torch.osd import scheduler as sched_mod
+    from ceph_tpu_torch.osd import scrub as scrub_mod
+    from ceph_tpu_torch.osd.recovery import PERF as RECOVERY_PERF
+    from ceph_tpu_torch.utils.devmon import devmon
+
+    pushes = {"bytes": 0, "objects": 0}
+    real_push = pg_mod.PG.apply_push
+
+    def apply_push(pg, m):
+        ok = real_push(pg, m)
+        if ok:
+            pushes["bytes"] += len(m.data)
+            pushes["objects"] += 1
+        return ok
+    pg_mod.PG.apply_push = apply_push
+    logs = {}
+    lag = {"max_s": 0.0, "at": None, "over_half_s": 0, "worst": []}
+    # the stores' fsyncs (WALStore and the mons' store sync each commit)
+    fsyncs = {"n": 0, "s": 0.0, "max_s": 0.0}
+    real_fsync = os.fsync
+
+    def fsync(fd):
+        t0 = time.perf_counter()
+        real_fsync(fd)
+        dt = time.perf_counter() - t0
+        fsyncs["n"] += 1
+        fsyncs["s"] += dt
+        fsyncs["max_s"] = max(fsyncs["max_s"], dt)
+    os.fsync = fsync
+
+    beat = {"t": time.monotonic()}
+
+    def stall_stacks(main_id):
+        """Print the loop thread's stack once a stall passes 1 s (and
+        again at 5 s), so the log says what held every loop at once."""
+        import traceback
+        shown = set()
+        while True:
+            time.sleep(0.2)
+            t, late = beat["t"], time.monotonic() - beat["t"]
+            for at in (1.0, 5.0):
+                if late > at and (t, at) not in shown:
+                    shown.add((t, at))
+                    frame = sys._current_frames().get(main_id)
+                    stack = "".join(traceback.format_stack(frame)[-14:])
+                    print(f"[stall] pid {os.getpid()} {late:.1f} s at "
+                          f"{time.time() - t_start:.1f} s, step "
+                          f"{logs['gf'].label}:\n{stack}", flush=True)
+
+    async def lag_monitor():
+        """This process's event-loop stalls: what a heartbeat or a lease
+        sees when the daemon's loop is busy."""
+        import threading
+        threading.Thread(target=stall_stacks, args=(threading.get_ident(),),
+                         daemon=True).start()
+        loop = asyncio.get_running_loop()
+        while True:
+            t0 = loop.time()
+            beat["t"] = time.monotonic()
+            await asyncio.sleep(0.05)
+            late = loop.time() - t0 - 0.05
+            lag["over_half_s"] += late > 0.5
+            if late > lag["max_s"]:
+                lag["max_s"], lag["at"] = late, logs["gf"].label
+            if late > 0.5:
+                lag["worst"] = sorted(lag["worst"] + [
+                    [round(late, 3), logs["gf"].label,
+                     round(time.time() - t_start, 1)]], reverse=True)[:4]
+
+    def register(asok, name, fn):
+        """``asok.register`` with a failing verb's traceback returned as
+        its answer (the parent raises it) instead of a dropped socket."""
+        import traceback
+
+        def run(*a):
+            try:
+                return fn(*a)
+            except Exception:
+                return {"error": traceback.format_exc()}
+        asok.register(name, (lambda cmd: run(cmd)) if
+                      fn.__code__.co_argcount else (lambda: run()),
+                      "osd_cluster_path probe")
+
+    def common(asok, ready_s):
+        def label(cmd):
+            for lg in logs.values():
+                lg.label = cmd["label"]
+            return {"label": cmd["label"]}
+
+        def drain():
+            g, c = logs["gf"], logs["crush"]
+            g.drain("osd cluster child")
+            c.drain("osd cluster child")
+            return {"gf": {"launches": g.real.launches,
+                           "by_step": g.launches, "ms_by_step": g.ms,
+                           "checked": g.checked, "worst": g.worst},
+                    "crush": {"launches": c.real.launches,
+                              "by_step": c.by_label, "checked": c.checked,
+                              "worst": c.worst},
+                    "flushes": logs["flush"].rows, "pushes": pushes}
+        register(asok, "smoke label", label)
+        register(asok, "smoke drain", drain)
+        asyncio.ensure_future(lag_monitor())
+        return {"ready_s": ready_s}
+
+    # every repair scrub this daemon ran, by PG: what a `pg repair` the
+    # parent sent came to (a request that found the PG not primary and
+    # active, or that left errors, is asked again)
+    repairs = {}
+    real_repair = scrub_mod.Scrubber.repair
+
+    async def repair(scrubber):
+        out = await real_repair(scrubber)
+        repairs.setdefault(str(scrubber.pg.pgid), []).append({
+            "repaired": out["repaired"],
+            "errors_before": len(out["errors_before"]),
+            "errors_after": len(out["errors_after"]),
+            "refused": out["errors_before"] == ["not primary+active"],
+            "state": scrubber.pg.state, "epoch": scrubber.pg.epoch,
+            "label": logs["gf"].label})
+        return out
+    scrub_mod.Scrubber.repair = repair
+    real_boot, real_start = daemon.OSD.boot, Monitor.start
+
+    async def boot(osd, *a, **kw):
+        await real_boot(osd, *a, **kw)
+        ready_s = time.time() - t_start
+        base = common(osd.asok, ready_s)
+
+        def stats():
+            pgs = list(osd.pgs.values())
+            return {**base,
+                    "wire": [osd.msgr.wire, osd.hb_msgr.wire],
+                    "devices": sorted({str(osd.device),
+                                       str(osd.ec_resident.device),
+                                       str(osd.monc.device)} |
+                                      {str(pg.ec.device) for pg in pgs
+                                       if hasattr(pg, "ec")}),
+                    "ec_agg": osd.ec_agg.perf.dump(),
+                    "ec_read_agg": osd.ec_read_agg.perf.dump(),
+                    "ec_resident": osd.ec_resident.perf.dump(),
+                    "recovery": RECOVERY_PERF.dump(),
+                    "scrub": scrub_mod.SCRUB_PERF.dump(),
+                    "qos": sched_mod.QOS_PERF.dump(),
+                    "overload": daemon.OVERLOAD_PERF.dump(),
+                    "first_launches": devmon().functions,
+                    "max_reserved_MiB":
+                        torch.cuda.max_memory_reserved(osd.device) / 2**20
+                        if osd.device.type == "cuda" else 0,
+                    "loop_lag": dict(lag), "fsync": dict(fsyncs)}
+
+        def table():
+            mm = osd.monc.mapping_table
+            return {"epoch": mm.epoch, "map_epoch": osd.osdmap.epoch,
+                    "pools": {str(p): {t: getattr(mm._pools[p], t).tolist()
+                                       for t in TABLES}
+                              for p in mm._pools}}
+
+        def resident():
+            return sorted({k[1] for k in osd.ec_resident._lru})
+
+        def shard(cmd):
+            data = bytes(osd.store.read(cmd["cid"], cmd["oid"]))
+            return {"crc": zlib.crc32(data), "len": len(data)}
+
+        def epoch():
+            return {"epoch": osd.osdmap.epoch if osd.osdmap else -1,
+                    "primary_not_clean": sorted(
+                        k for k, pg in osd.pgs.items()
+                        if pg.is_primary() and pg.state != "clean")}
+
+        def corrupt(cmd):
+            cid, oid, off = cmd["cid"], cmd["oid"], int(cmd["offset"])
+            data = bytes(osd.store.read(cid, oid))
+            # a write under the store's own checksum: the bytes change
+            # and nothing above the store learns of it
+            osd.store.queue_transaction(Transaction().write(
+                cid, oid, off, bytes([data[off] ^ 0x5A])))
+            return {"crc": zlib.crc32(data), "len": len(data)}
+        for name, fn in (("smoke stats", stats), ("smoke table", table),
+                         ("smoke resident", resident),
+                         ("smoke shard", shard),
+                         ("smoke corrupt", corrupt),
+                         ("smoke epoch", epoch),
+                         ("smoke repairs", lambda: repairs)):
+            register(osd.asok, name, fn)
+
+    slow_cmds = []
+    real_cmd = Monitor.handle_command
+
+    async def handle_command(mon, cmd, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return await real_cmd(mon, cmd, *a, **kw)
+        finally:
+            dt = time.perf_counter() - t0
+            if dt > 0.2 and len(slow_cmds) < 64:
+                slow_cmds.append([str(cmd.get("prefix")), round(dt, 4),
+                                  logs["gf"].label])
+    Monitor.handle_command = handle_command
+
+    async def start(mon, *a, **kw):
+        await real_start(mon, *a, **kw)
+        base = common(mon.asok, time.time() - t_start)
+        register(mon.asok, "smoke stats", lambda: {
+            **base, "wire": [mon.msgr.wire],
+            "election_epoch": mon.elector.epoch,
+            "first_launches": devmon().functions, "loop_lag": dict(lag),
+            "fsync": dict(fsyncs), "slow_commands": slow_cmds})
+    daemon.OSD.boot, Monitor.start = boot, start
+    with GfLaunchLog(gkern) as glog, StepLaunchLog(ckern) as clog, \
+            FlushLog() as flog:
+        logs.update(gf=glog, crush=clog, flush=flog)
+        proc.main(argv)
+
+
+def osd_cluster_path_phase(card: str, pool) -> dict:
+    """The OSD daemon and the dev cluster on the card (phases 41-48): a
+    ``vstart`` cluster (the proc backend: one process per daemon) of three
+    mons and twelve OSD daemons serves a ``rados``-bench-style client on
+    a k=8 m=3 pool and a replicated pool. Returns the launches of both
+    kernels on the path (every daemon's counts start at 0 with its
+    process, the client's are set to 0 just before the cluster starts,
+    and all are read as the daemons end) and the largest difference of
+    any launch from its plain version."""
+    import os
+
+    from ceph_tpu_torch.cluster.proc import ProcCluster
+    from ceph_tpu_torch.crush import kernels as ckern
+    from ceph_tpu_torch.osd.osdmap import STATE_UP
+    from ceph_tpu_torch.utils.devmon import devmon
+
+    rng = np.random.default_rng(SEED + 41)
+    gib = 1 << 30
+    host_s, rec = {}, {}
+    mirror, hdrs = {}, {}
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.dirname(os.path.join(here, CL_LOG)), exist_ok=True)
+    child_log = open(os.path.join(here, CL_LOG), "wb")
+
+    class SmokeCluster(ProcCluster):
+        """The port's ``ProcCluster`` with each child started through
+        ``chip_smoke.py --proc-child`` (the hooks) and its output kept in
+        ``CL_LOG``."""
+
+        async def _exec(self, child):
+            child.argv = [sys.executable, os.path.abspath(CHILD_SCRIPT),
+                          "--proc-child"] + child.argv[3:]
+            if child.name.startswith("mon."):
+                # the mons run on the CPU, as on hosts of their own
+                # without the card: the conf's copy with device=cpu
+                with open(self.conf_path) as f:
+                    doc = json.load(f)
+                mon_conf = f"{self.conf_path}.mon"
+                with open(mon_conf, "w") as f:
+                    json.dump(dict(doc, device="cpu"), f)
+                at = child.argv.index("--conf") + 1
+                child.argv[at] = mon_conf
+            env = dict(os.environ)
+            env["PYTHONPATH"] = os.pathsep.join(
+                p for p in (here, env.get("PYTHONPATH")) if p)
+            env["CHIP_SMOKE_SPAWNED"] = repr(time.time())
+            # one CPU thread per daemon for torch's and numpy's host ops
+            env["OMP_NUM_THREADS"] = env["MKL_NUM_THREADS"] = "1"
+            # the mons, which a deployment runs on hosts of their own,
+            # keep their share of this one host's cores: the OSDs run
+            # at a lower priority (nice 5)
+            nice = 5 if child.name.startswith("osd.") else 0
+            child.proc = await asyncio.create_subprocess_exec(
+                *child.argv, env=env, stdout=child_log,
+                stderr=subprocess.STDOUT,
+                preexec_fn=(lambda: os.nice(nice)) if nice else None)
+            child.started_at = asyncio.get_event_loop().time()
+
+    async def bounded(fns):
+        """Run every coroutine factory, CL_INFLIGHT at a time."""
+        sem = asyncio.Semaphore(CL_INFLIGHT)
+
+        async def one(fn):
+            async with sem:
+                return await fn()
+        return await asyncio.gather(*[one(f) for f in fns])
+
+    async def timed(what, coro):
+        t0 = time.perf_counter()
+        out = await coro
+        host_s[what] = time.perf_counter() - t0
+        print(f"[{card}] osd_cluster_path {what}: {host_s[what]:.3f} s",
+              flush=True)
+        return out
+
+    async def read_all(ec_io, what):
+        got = await bounded([lambda o=o: ec_io.read(o, timeout=CL_DEADLINE)
+                             for o in mirror])
+        for oid, data in zip(mirror, got):
+            require(data == bytes(mirror[oid]),
+                    f"{what}: {oid} differs from its mirror")
+
+    async def overwrite(ec_io, n):
+        oids = list(mirror)
+        jobs = []
+        for _ in range(n):
+            oid = oids[int(rng.integers(0, len(oids)))]
+            off = int(rng.integers(0, OBJ_SIZE // RMW_BYTES)) * RMW_BYTES
+            data = rng.integers(0, 256, RMW_BYTES, dtype=np.uint8).tobytes()
+            jobs.append((oid, off, data))
+        # one object's ops keep their submission order (one PG, one
+        # queue), so the mirror takes them in that order
+        for oid, off, data in jobs:
+            mirror[oid][off:off + RMW_BYTES] = data
+        await bounded([lambda j=j: ec_io.write(j[0], j[2], offset=j[1],
+                                                timeout=CL_DEADLINE)
+                       for j in jobs])
+
+    async def wait_for(pred, what):
+        t0 = time.perf_counter()
+        while not await pred():
+            require(time.perf_counter() - t0 < CL_DEADLINE,
+                    f"osd cluster: {what} after {CL_DEADLINE} s")
+            await asyncio.sleep(0.1)
+
+    async def run(clog):
+        clog.real.launches = 0
+        clog.label = "start"
+        c = SmokeCluster(n_mons=CL_MONS, n_osds=CL_OSDS,
+                         config=CL_CONFIG, device="cuda")
+        # daemon -> one `smoke drain` and one `smoke stats` per process
+        # it ran as (a revived OSD is a second process)
+        children, stats = {}, {}
+        dead = set()
+
+        async def ask(name, cmd):
+            out = await c.daemon_command(name, cmd)
+            require("error" not in out, f"osd cluster: {name} {cmd}: {out}")
+            return out
+
+        async def label(step):
+            clog.label = step
+            await asyncio.gather(*[ask(n, {"prefix": "smoke label",
+                                           "label": step})
+                                   for n in c.children if n not in dead])
+
+        async def collect(names):
+            # one daemon at a time: each drain runs the plain versions
+            for n in names:
+                stats.setdefault(n, []).append(await ask(n, "smoke stats"))
+                children.setdefault(n, []).append(
+                    await ask(n, "smoke drain"))
+
+        async def up_osds() -> int:
+            st = await c.client.status()
+            return int(st.get("osdmap", {}).get("num_up_osds", -1))
+
+        async def election_epochs():
+            mons = [n for n in c.children if n.startswith("mon.")]
+            outs = await asyncio.gather(*[ask(n, "smoke stats")
+                                          for n in mons])
+            return {n: o["election_epoch"] for n, o in zip(mons, outs)}
+
+        try:
+            await timed("start", c.start())
+            await asyncio.gather(*[c.wait_for_daemon_ready(n, 120)
+                                   for n in c.children])
+            cl = c.client
+            require(cl.monc.device.type == "cuda",
+                    "osd cluster: the client is not on the card")
+            elections0 = await election_epochs()
+            events, epochs = [], []
+            prev = {"up": None}
+
+            async def on_map(om):
+                up = (np.asarray(om.osd_state) & STATE_UP) != 0
+                if prev["up"] is not None and len(prev["up"]) == len(up):
+                    for o in np.flatnonzero(prev["up"] & ~up):
+                        events.append(("down", int(o), om.epoch))
+                    for o in np.flatnonzero(~prev["up"] & up):
+                        events.append(("up", int(o), om.epoch))
+                prev["up"] = up
+                epochs.append(om.epoch)
+            cl.monc.map_callbacks.append(on_map)
+            # the client's one-PG lookups, by epoch (trouble 3)
+            lookups = {}
+            objecter = cl.objecter
+            real_ct = objecter._calc_target
+
+            def calc_target(osdmap, pool_id, oid):
+                m0 = osdmap.mapping_cache_misses
+                v0 = devmon().perf.dump()["launches_vm"]
+                k0 = clog.n
+                out = real_ct(osdmap, pool_id, oid)
+                e = lookups.setdefault(str(osdmap.epoch), {
+                    "lookups": 0, "memo_misses": 0, "vm_runs": 0,
+                    "kernel_launches": 0})
+                e["lookups"] += 1
+                e["memo_misses"] += osdmap.mapping_cache_misses - m0
+                e["vm_runs"] += devmon().perf.dump()["launches_vm"] - v0
+                e["kernel_launches"] += clog.n - k0
+                return out
+            objecter._calc_target = calc_target
+
+            # -- 41. the pools ------------------------------------------------
+            await label("pools")
+            ret, rs, _ = await cl.mon_command(
+                {"prefix": "osd erasure-code-profile set", "name": "rbd_ec",
+                 "profile": [f"k={K}", f"m={M}", "technique=reed_sol_van",
+                             "crush-failure-domain=host",
+                             f"stripe_unit={OBJ_C}"]})
+            require(ret == 0, f"osd cluster: profile: {rs}")
+            ret, rs, _ = await cl.mon_command(
+                {"prefix": "osd pool create", "pool": "rbd_data",
+                 "pg_num": CL_EC_PGS, "pool_type": "erasure",
+                 "erasure_code_profile": "rbd_ec"})
+            require(ret == 0, f"osd cluster: ec pool: {rs}")
+            await cl.pool_create("rbd_meta", pg_num=CL_REP_PGS, size=3)
+
+            async def has_pools():
+                om = cl.monc.osdmap
+                return om is not None and {"rbd_data", "rbd_meta"} <= {
+                    p.name for p in om.pools.values()}
+            await wait_for(has_pools, "the client's map lacks the pools")
+            await timed("to_clean_after_create",
+                        c.wait_for_clean(timeout=CL_DEADLINE))
+            ec_io = await cl.open_ioctx("rbd_data")
+            rep_io = await cl.open_ioctx("rbd_meta")
+
+            # -- 42. write, read ----------------------------------------------
+            for i in range(CL_OBJS):
+                mirror[f"rbd_data.{i:04x}"] = bytearray(rng.integers(
+                    0, 256, OBJ_SIZE, dtype=np.uint8).tobytes())
+            for i in range(CL_HDRS):
+                hdrs[f"rbd_header.{i:04x}"] = rng.integers(
+                    0, 256, CL_HDR, dtype=np.uint8).tobytes()
+            await label("write")
+            await timed("write", bounded([
+                lambda o=o: ec_io.write_full(o, bytes(mirror[o]),
+                                             timeout=CL_DEADLINE)
+                for o in mirror]))
+
+            async def header(oid, data):
+                await rep_io.write_full(oid, data, timeout=CL_DEADLINE)
+                await rep_io.setxattr(oid, "rbd.features", b"\x01")
+                await rep_io.set_omap(oid, "size", str(OBJ_SIZE).encode())
+                await rep_io.set_omap(oid, "order", b"22")
+            await timed("headers", bounded([
+                lambda o=o, d=d: header(o, d) for o, d in hdrs.items()]))
+            await label("read")
+            await timed("read", read_all(ec_io, "read"))
+
+            # -- 43. overwrites -----------------------------------------------
+            await label("overwrite")
+            await timed("overwrite", overwrite(ec_io, CL_RMW))
+
+            # -- 44. two OSDs hard-stopped ------------------------------------
+            await label("failure")
+            victims = [f"osd.{o}" for o in CL_KILL]
+            await collect(victims)      # their launches, checked, so far
+            t0 = time.perf_counter()
+            for n in victims:
+                c.children[n].desired = "stopped"   # no respawn
+                c.kill_daemon(n)
+                dead.add(n)
+
+            async def both_down():
+                return await up_osds() == CL_OSDS - len(CL_KILL)
+            await wait_for(both_down, "the stopped OSDs were not marked down")
+            host_s["detect"] = time.perf_counter() - t0
+            print(f"[{card}] osd_cluster_path detect: "
+                  f"{host_s['detect']:.3f} s", flush=True)
+            for n in victims:
+                await c.children[n].proc.wait()
+
+            # -- 45. degraded reads and overwrites ----------------------------
+            await label("degraded_read")
+            await timed("degraded_read", read_all(ec_io, "degraded read"))
+            await label("degraded_overwrite")
+            await timed("degraded_overwrite", overwrite(ec_io, CL_DEG_RMW))
+
+            # -- 46. revive one, out the other; recovery ----------------------
+            t0 = time.perf_counter()
+            dead.discard(victims[0])
+            await c._spawn(victims[0])
+            await c.wait_for_daemon_ready(victims[0], CL_DEADLINE)
+            host_s["revive"] = time.perf_counter() - t0
+            await label("recovery")
+            ret, rs, _ = await cl.mon_command({"prefix": "osd out",
+                                               "id": CL_KILL[1]})
+            require(ret == 0, f"osd cluster: osd out: {rs}")
+            await c.wait_for_clean(timeout=CL_DEADLINE)
+            host_s["to_clean"] = time.perf_counter() - t0
+            print(f"[{card}] osd_cluster_path to_clean: "
+                  f"{host_s['to_clean']:.3f} s", flush=True)
+
+            # -- 47. corrupt 16 shards, pg repair -----------------------------
+            await label("repair")
+
+            # an operator repairs a settled cluster: every live OSD and
+            # the client hold the mon's last map and every PG is clean,
+            # so the acting sets read here are the ones the repairs see
+            async def settled():
+                st = await cl.status()
+                want, pgmap = st["osdmap"]["epoch"], st["pgmap"]
+                if cl.monc.osdmap.epoch != want or \
+                        pgmap["states"].get("clean") != pgmap["num_pgs"]:
+                    return False
+                outs = await asyncio.gather(*[
+                    ask(n, "smoke epoch") for n in c.children
+                    if n.startswith("osd.") and n not in dead])
+                return all(o["epoch"] == want and not o["primary_not_clean"]
+                           for o in outs)
+            t0 = time.perf_counter()
+            await wait_for(settled, "the cluster did not settle")
+            host_s["settle"] = time.perf_counter() - t0
+            om = cl.monc.osdmap
+            pid = ec_io.pool_id
+            seeds = np.arange(CL_EC_PGS, dtype=np.uint32)
+            _u, _up, acting, actp = om.pg_to_up_acting_osds(pid, seeds)
+            acting, actp = np.asarray(acting), np.asarray(actp)
+            held = {}
+            for o in sorted({int(x) for x in actp}):
+                held[o] = set(await ask(f"osd.{o}", "smoke resident"))
+            pick = []
+            for oid in mirror:
+                seed, primary = real_ct(om, pid, oid)
+                if oid not in held[int(actp[seed])]:
+                    pick.append((oid, seed))
+                if len(pick) == CL_CORRUPT:
+                    break
+            require(len(pick) == CL_CORRUPT,
+                    f"osd cluster: only {len(pick)} objects are not resident "
+                    f"on their primary")
+            saved = {}
+            for oid, seed in pick:
+                pos = int(rng.integers(0, K + M))
+                name = f"osd.{int(acting[seed][pos])}"
+                cid = f"{pid}.{seed:x}"
+                out = await ask(name, {"prefix": "smoke corrupt", "cid": cid,
+                                       "oid": oid, "offset": int(
+                                           rng.integers(0, OBJ_SIZE // K))})
+                saved[(name, cid, oid)] = out["crc"]
+            # deep scrub reads through the residency cache (a reference
+            # fault, ROADMAP Queue C): none of these may be resident
+            for oid, seed in pick:
+                now = await ask(f"osd.{int(actp[seed])}", "smoke resident")
+                require(oid not in now,
+                        f"osd cluster: corrupted {oid} is resident")
+            t0 = time.perf_counter()
+            asks = rec["repair_asks"] = {}
+            runs = rec["repair_runs"] = {}
+            # one command at a time, as an operator's shell sends them:
+            # the leader maps each PG (a rule-VM run on the `indep`
+            # pool), and twelve at once held its loop past the lease
+            one_at_a_time = asyncio.Lock()
+
+            async def repair(seed):
+                """`pg repair`, asked again (as an operator would) while
+                the primary's repair scrub did not run (the PG was not
+                primary and active) or left errors."""
+                pgid, primary = f"{pid}.{seed:x}", f"osd.{int(actp[seed])}"
+                for n in range(1, CL_REPAIR_ASKS + 1):
+                    asks[pgid] = n
+                    before = len((await ask(primary, "smoke repairs"))
+                                 .get(pgid, []))
+                    async with one_at_a_time:
+                        ret, rs, _ = await cl.mon_command(
+                            {"prefix": "pg repair", "pgid": pgid})
+                    require(ret == 0, f"osd cluster: pg repair: {rs}")
+                    t1 = time.perf_counter()
+                    while time.perf_counter() - t1 < CL_REPAIR_WAIT:
+                        runs[pgid] = (await ask(primary, "smoke repairs")
+                                      ).get(pgid, [])
+                        if len(runs[pgid]) > before:
+                            last = runs[pgid][-1]
+                            if not last["refused"] and last["repaired"] \
+                                    and not last["errors_after"]:
+                                return
+                            break
+                        await asyncio.sleep(0.25)
+                require(False, f"osd cluster: pg {pgid} on {primary} not "
+                               f"repaired in {CL_REPAIR_ASKS} asks: "
+                               f"{runs.get(pgid)}")
+            await asyncio.gather(*[repair(seed)
+                                   for seed in sorted({s for _o, s in pick})])
+
+            async def restored():
+                outs = await asyncio.gather(*[
+                    ask(n, {"prefix": "smoke shard", "cid": cid, "oid": o})
+                    for n, cid, o in saved])
+                rec["unrestored"] = [list(k) for k, x in zip(saved, outs)
+                                     if x["crc"] != saved[k]]
+                return not rec["unrestored"]
+            await wait_for(restored, "repair did not restore every shard")
+            host_s["repair"] = time.perf_counter() - t0
+            print(f"[{card}] osd_cluster_path repair: "
+                  f"{host_s['repair']:.3f} s", flush=True)
+            rec["repaired_pgs"] = len({s for _o, s in pick})
+
+            # -- 48. read everything back -------------------------------------
+            await label("final_read")
+            await timed("final_read", read_all(ec_io, "final read"))
+            got = await bounded([lambda o=o: rep_io.read(
+                o, timeout=CL_DEADLINE) for o in hdrs])
+            require(got == list(hdrs.values()),
+                    "osd cluster: a header object differs")
+            for oid in list(hdrs)[:8]:
+                require(await rep_io.getxattr(oid, "rbd.features") ==
+                        b"\x01" and await rep_io.get_omap_vals(oid) ==
+                        {"order": b"22", "size": str(OBJ_SIZE).encode()},
+                        f"osd cluster: {oid}'s xattr or omap")
+            st = await cl.status()
+            pgmap = st.get("pgmap", {})
+            require(pgmap.get("num_pgs") == CL_EC_PGS + CL_REP_PGS and
+                    pgmap.get("states", {}).get("clean") ==
+                    pgmap.get("num_pgs"),
+                    f"osd cluster: not every PG is clean: {pgmap}")
+            elections1 = await election_epochs()
+            # the tables: one OSD's against mapper_ref, every OSD's alike
+            live = [n for n in c.children
+                    if n.startswith("osd.") and n not in dead]
+            final = cl.monc.osdmap.epoch
+
+            async def tables_at_final():
+                outs = await asyncio.gather(*[ask(n, "smoke table")
+                                              for n in live])
+                rec["_tables"] = outs
+                return cl.monc.osdmap.epoch == final and all(
+                    o["epoch"] == final and o["map_epoch"] == final
+                    for o in outs)
+            await wait_for(tables_at_final, "an OSD never reached the "
+                                            "last epoch")
+            tables = rec.pop("_tables")
+            require(all(t["pools"] == tables[0]["pools"] for t in tables),
+                    "osd cluster: the OSDs' tables differ")
+            rec["markdowns"] = [e for e in events if e[0] == "down"]
+            rec["markups"] = [e for e in events if e[0] == "up"]
+            rec["elections_after_start"] = {
+                n: (elections1[n] - elections0[n]) // 2 for n in elections0}
+            rec["epochs"] = {"first": epochs[0] if epochs else None,
+                             "last": final, "client_maps": len(epochs)}
+            rec["client_lookups_by_epoch"] = lookups
+            rec["client_wire"] = dict(cl.monc.msgr.wire)
+            await collect([n for n in c.children if n not in dead])
+            rec["child_ready_s"] = {n: [s["ready_s"] for s in v]
+                                    for n, v in sorted(stats.items())}
+            return om, tables[0]
+        except BaseException:
+            # what the daemons saw, for the failure's record
+            why = {k: rec.get(k) for k in ("unrestored", "repair_asks",
+                                           "repair_runs")}
+            print(f"[{card}] osd_cluster_path at failure: "
+                  f"{json.dumps(why)}", flush=True)
+            for n in [n for n in c.children if n not in dead]:
+                try:
+                    out = await asyncio.wait_for(
+                        c.daemon_command(n, "smoke stats"), 5)
+                    print(f"[{card}] osd_cluster_path at failure: {n} "
+                          f"loop lag {out.get('loop_lag')}", flush=True)
+                except Exception as e:
+                    print(f"[{card}] osd_cluster_path at failure: {n} "
+                          f"{type(e).__name__}", flush=True)
+            raise
+        finally:
+            await c.stop()
+            child_log.close()
+            rec["children"] = children
+            rec["stats"] = stats
+
+    # the earlier phases' cached blocks go back to the card before
+    # twelve daemon processes share it
+    torch.cuda.empty_cache()
+    rec["card_free_GiB_at_start"] = torch.cuda.mem_get_info()[0] / gib
+    with StepLaunchLog(ckern) as clog:
+        om, table = asyncio.run(run(clog))
+        torch.cuda.synchronize()
+        c_client = clog.real.launches
+        clog.drain("osd cluster client")
+
+    # -- the launches of every daemon and the client ----------------------
+    children, stats = rec.pop("children"), rec.pop("stats")
+    gf, crush = {"launches": 0, "by_step": {}, "ms_by_step": {},
+                 "checked": 0, "worst": 0}, {
+        "launches": c_client, "by_step": {"client": clog.by_label},
+        "checked": clog.checked, "worst": clog.worst}
+    flushes = {}
+    pushed = {"bytes": 0, "objects": 0}
+    for name, last in [(n, d) for n, ds in children.items() for d in ds]:
+        gf["launches"] += last["gf"]["launches"]
+        crush["launches"] += last["crush"]["launches"]
+        for lg, part in ((gf, last["gf"]), (crush, last["crush"])):
+            lg["checked"] += part["checked"]
+            lg["worst"] = max(lg["worst"], part["worst"])
+        require(last["gf"]["checked"] == last["gf"]["launches"] and
+                last["crush"]["checked"] == last["crush"]["launches"],
+                f"osd cluster: {name} checked {last['gf']['checked']} of "
+                f"{last['gf']['launches']} gf_encode and "
+                f"{last['crush']['checked']} of "
+                f"{last['crush']['launches']} crush_straw2 launches")
+        for step, n in last["gf"]["by_step"].items():
+            gf["by_step"][step] = gf["by_step"].get(step, 0) + n
+        for step, ms in last["gf"]["ms_by_step"].items():
+            gf["ms_by_step"][step] = gf["ms_by_step"].get(step, 0.0) + ms
+        for step, ent in last["crush"]["by_step"].items():
+            tot = crush["by_step"].setdefault(step, {"launches": 0,
+                                                     "lanes": 0, "ms": 0.0})
+            for k in tot:
+                tot[k] += ent[k]
+        for kind, by_label in last["flushes"].items():
+            for step, rows in by_label.items():
+                flushes.setdefault(kind, {}).setdefault(step, []).extend(rows)
+        for k in pushed:
+            pushed[k] += last["pushes"][k]
+    require(gf["worst"] == 0 and crush["worst"] == 0,
+            "osd cluster: a launch differs from its plain version")
+    require(gf["launches"] > 0 and crush["launches"] > 0,
+            f"osd cluster: gf_encode {gf['launches']}, crush_straw2 "
+            f"{crush['launches']} launches")
+    # -- counters: devices, ladders, device failures ----------------------
+    osd_stats = [(n, s) for n, v in stats.items() if n.startswith("osd.")
+                 for s in v]
+    for name, s in osd_stats:
+        require(s["devices"] == ["cuda"] or all(
+            d.startswith("cuda") for d in s["devices"]),
+            f"osd cluster: {name} runs on {s['devices']}")
+        for kind, keys in (("ec_agg", PG_RINGS_AGG),
+                           ("ec_read_agg", PG_RINGS_READ_AGG)):
+            rungs = {k: s[kind].get(k, 0) for k in keys}
+            require(not any(rungs.values()),
+                    f"osd cluster: {name} {kind} rungs {rungs}")
+        fails = (s["recovery"].get("push_device_failures", 0),
+                 s["recovery"].get("rebuild_device_failures", 0),
+                 s["scrub"].get("device_crc_failures", 0))
+        require(not any(fails), f"osd cluster: {name} device failures "
+                                f"{fails}")
+
+    def total(kind, keys):
+        return {k: sum(int(s[kind].get(k, 0)) for _n, s in osd_stats)
+                for k in keys}
+    rec["ec_agg"] = total("ec_agg", ("batches", "ops", "stripes",
+                                     "bypass"))
+    rec["ec_read_agg"] = total("ec_read_agg", ("batches", "ops", "stripes",
+                                               "bypass"))
+    rec["residency"] = total("ec_resident", ("hits", "misses", "evictions",
+                                             "invalidations"))
+    rec["scheduler_grants"] = total("qos", (
+        "dequeued_client", "dequeued_recovery", "dequeued_scrub",
+        "reservation_grants", "weight_grants", "fifo_grants"))
+    rec["overload"] = total("overload", ("backoffs_sent",
+                                         "backoffs_released",
+                                         "throttle_queued"))
+    wire = {"tx_bytes": 0, "rx_bytes": 0, "tx_frames": 0, "rx_frames": 0}
+    for w in [x for v in stats.values() for s in v for x in s["wire"]] + \
+            [rec.pop("client_wire")]:
+        for k in wire:
+            wire[k] += w[k]
+    rec["wire"] = wire
+    rec["recovery_pushed"] = pushed
+    rec["loop_lag"] = {n: [x["loop_lag"] for x in v]
+                       for n, v in sorted(stats.items())}
+    rec["fsync"] = {n: [x["fsync"] for x in v]
+                    for n, v in sorted(stats.items())}
+    rec["osd_max_reserved_MiB"] = max(x["max_reserved_MiB"]
+                                      for _n, x in osd_stats)
+    rec["mon_slow_commands"] = {n: v[-1]["slow_commands"]
+                                for n, v in sorted(stats.items())
+                                if n.startswith("mon.")}
+    logical = CL_OBJS * OBJ_SIZE
+    record = {
+        "card": card,
+        "layout": {"mons": CL_MONS, "osds": CL_OSDS, "backend": "proc",
+                   "store": "WALStore",
+                   "ec_pool": f"k={K} m={M} reed_sol_van host "
+                              f"stripe_unit={OBJ_C} pg_num={CL_EC_PGS}",
+                   "rep_pool": f"size 3 pg_num {CL_REP_PGS}",
+                   "resident_budget": OBJ_RESIDENT_BYTES},
+        "objects": CL_OBJS, "object_bytes": OBJ_SIZE,
+        "headers": CL_HDRS, "inflight": CL_INFLIGHT,
+        "host_s": host_s,
+        "write_GiBs": logical / host_s["write"] / gib,
+        "read_GiBs": logical / host_s["read"] / gib,
+        "degraded_read_GiBs": logical / host_s["degraded_read"] / gib,
+        "overwrite_ops_per_s": CL_RMW / host_s["overwrite"],
+        "degraded_overwrite_ops_per_s":
+            CL_DEG_RMW / host_s["degraded_overwrite"],
+        "detect_s": host_s["detect"],
+        "recovery_GiBs": pushed["bytes"] / host_s["to_clean"] / gib,
+        "to_clean_s": host_s["to_clean"], "repair_s": host_s["repair"],
+        "gf_encode": gf, "crush_straw2": crush,
+        "flushes": flush_summary(flushes),
+        **rec,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print("osd_cluster_path: " + json.dumps(record))
+    # -- the markdowns and elections the cell caused, and no others -------
+    downs = sorted(e[1] for e in rec["markdowns"])
+    require(downs == sorted(CL_KILL), f"osd cluster: markdowns {downs}, "
+                                      f"want only {sorted(CL_KILL)}")
+    require([e[1] for e in rec["markups"]] == [CL_KILL[0]],
+            f"osd cluster: markups {rec['markups']}")
+    require(not any(rec["elections_after_start"].values()),
+            f"osd cluster: elections {rec['elections_after_start']}")
+    # -- one OSD's tracked table against mapper_ref + the pipeline --------
+    w = om._device_weights().tolist()
+    for pid, pool_ in om.pools.items():
+        pick = np.unique(np.linspace(0, pool_.pg_num - 1, min(
+            pool_.pg_num, SCALAR_SAMPLE)).astype(np.int64))
+        pseeds = pick.astype(np.uint32)
+        pps = pool_.raw_pg_to_pps(pseeds)
+        raw = scalar_map(pool, om.crush, pool_.crush_rule, pps,
+                         pool_.size, w).astype(np.int32)
+        want = (raw, *om._pipeline_from_crush(pool_, pseeds, raw, pps))
+        t = table["pools"][str(pid)]
+        for name, wv in zip(TABLES, want):
+            require(np.array_equal(np.asarray(t[name])[pick], wv),
+                    f"osd cluster: pool {pid} {name} differs from "
+                    f"mapper_ref + pipeline")
+    return {"gf": (gf["launches"], gf["worst"]),
+            "crush": (crush["launches"], crush["worst"])}
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--proc-child"]:
+        proc_child(sys.argv[2:])
+    else:
+        main()

@@ -736,3 +736,61 @@ def test_the_fullness_sweep_waits_on_the_map_lock_only_with_a_change(pkg):
         finally:
             await stop_all(mons)
     run(go())
+
+
+
+@pytest.mark.parametrize("pkg", ["reference", "port"])
+def test_two_mons_can_win_one_epoch(pkg):
+    """A reference fault the port keeps (ROADMAP Queue C): rank 1
+    proposes and rank 2 acks it; rank 0 proposes in the same epoch and
+    rank 1 defers, yet when rank 1's election timer fires it still
+    counts the acks it gathered for itself and declares victory, beside
+    rank 0. And a rank-2 mon acks both rank 0 and rank 1 in one epoch,
+    so each can count it for a majority. Ceph's elector drops a
+    deferring mon's candidacy and acks one proposer per epoch."""
+    import ceph_tpu.mon.elector as ref_elector
+    import ceph_tpu_torch.mon.elector as port_elector
+    el_mod, msgs = (ref_elector, ref_msgs) if pkg == "reference" else \
+        (port_elector, port_msgs)
+
+    class FakeMon:
+        election_timeout = 0.0
+
+        def __init__(self, rank):
+            self.rank = rank
+            self.sent, self.won = [], []
+            self.monmap = type("M", (), {"ranks": lambda _s: [0, 1, 2]})()
+
+        async def send_mon(self, r, m):
+            self.sent.append((r, m.op, m.epoch))
+
+        async def win_election(self, epoch, quorum):
+            self.won.append((epoch, quorum))
+
+    async def go():
+        mon = FakeMon(1)
+        el = el_mod.Elector(mon)
+        await el.start()                          # propose at epoch 2
+        await el.handle(msgs.MMonElection(op=msgs.ELECTION_ACK,
+                                          epoch=el.epoch, rank=2,
+                                          quorum=[]))
+        await el.handle(msgs.MMonElection(op=msgs.ELECTION_PROPOSE,
+                                          epoch=el.epoch, rank=0,
+                                          quorum=[]))
+        el._timer.cancel()
+        await el._expire()                        # the timer fires
+        await asyncio.sleep(0)
+        third = FakeMon(2)
+        el3 = el_mod.Elector(third)
+        for rank in (0, 1):
+            await el3.handle(msgs.MMonElection(op=msgs.ELECTION_PROPOSE,
+                                               epoch=3, rank=rank,
+                                               quorum=[]))
+        if el3._timer:
+            el3._timer.cancel()
+        return mon.won, mon.sent, [r for r, op, _e in third.sent
+                                   if op == msgs.ELECTION_ACK]
+    won, sent, acked = asyncio.run(go())
+    assert (0, msgs.ELECTION_ACK, 2) in sent      # it deferred to rank 0
+    assert won and won[0][1] == [1, 2]            # and still won
+    assert acked == [0, 1]                        # one mon acked both

@@ -390,3 +390,42 @@ def test_reference_and_port_messengers_talk(mode, direction):
         await client.shutdown()
         await server.shutdown()
     asyncio.run(go())
+
+
+@pytest.mark.parametrize("pkg", ["reference", "port"])
+def test_a_handshake_that_ends_after_shutdown(pkg):
+    """A session whose server-side handshake finishes after ``shutdown``
+    began: the reference registers it, so it outlives its messenger (a
+    hard-stopped OSD's heartbeat messenger went on answering pings and
+    was never marked down); the port closes it. The handshake is held
+    open until shutdown has run, so the order is fixed."""
+    mod = ref_msg if pkg == "reference" else port_msg
+
+    async def go():
+        server = mod.Messenger("osd.7")
+        addr = await server.bind()
+        held, release = asyncio.Event(), asyncio.Event()
+        real = server._server_handshake
+
+        async def slow(reader, writer):
+            held.set()
+            await release.wait()
+            return await real(reader, writer)
+        server._server_handshake = slow
+        client = mod.Messenger("client.z")
+        task = asyncio.ensure_future(client.connect(addr, "osd.7"))
+        await asyncio.wait_for(held.wait(), 5)
+        await server.shutdown()
+        release.set()
+        try:
+            await asyncio.wait_for(task, 5)
+        except Exception:
+            pass
+        for _ in range(20):
+            await asyncio.sleep(0.01)
+        registered = len(server._accepted)
+        await client.shutdown()
+        await server.shutdown()
+        return registered
+    got = asyncio.run(go())
+    assert got == (1 if pkg == "reference" else 0)
