@@ -27,8 +27,17 @@ imports torch and never jax, nor anything of ``ceph_tpu``.
                             the services, ``Monitor``, ``MonMap``) and
                             ``MonClient``, whose tracked table maps on
                             the card.
-- ``ceph_tpu_torch.mgr``    the mgr report session's messages and the
-                            daemons' ``MgrReporter``.
+- ``ceph_tpu_torch.mgr``    the mgr daemon (``Mgr``: active/standby,
+                            the report sessions' index, the balancer,
+                            autoscaler, prometheus, tracing, progress,
+                            rest and tuner modules), whose placement
+                            table maps on the card, and the daemons'
+                            ``MgrReporter``.
+- ``ceph_tpu_torch.rbd``    RBD images striped over RADOS objects
+                            (snapshots, clones, ``rbd diff v1``).
+- ``ceph_tpu_torch.rados``, ``osdc``, ``cluster`` librados, the
+                            objecter, and the dev cluster (vstart, one
+                            process per daemon).
 - ``ceph_tpu_torch.cephfs`` the FSMap the MDSMonitor commits.
 - ``ceph_tpu_torch.msg``    the messenger, auth and wire messages.
 - ``ceph_tpu_torch.os_``    object stores: kv, allocator, MemStore,
@@ -37,11 +46,13 @@ imports torch and never jax, nor anything of ``ceph_tpu``.
                             over ctypes.
 - ``ceph_tpu_torch.encoding`` binary codecs of crush maps, osdmaps and
                             incrementals (ceph_tpu's bytes).
-- ``ceph_tpu_torch.sim``    the churn (rebalance) simulator.
+- ``ceph_tpu_torch.sim``    the churn (rebalance) simulator, fault
+                            injection.
 - ``ceph_tpu_torch.bench``  ``ceph_erasure_code_benchmark``-compatible CLI,
                             ``crushtool``, ``crush_sweep``, ``osdmaptool``,
                             ``objectstore_tool``, ``ec_streaming``,
-                            ``ec_daemon_path`` and ``dencoder``.
+                            ``ec_daemon_path``, ``dencoder`` and the
+                            ``ceph``, ``rados`` and ``rbd`` CLIs.
 - ``ceph_tpu_torch.utils``  Device selection, kernel build, timing,
                             bounds, perf counters, logging, the
                             device-runtime monitor (``devmon``), the

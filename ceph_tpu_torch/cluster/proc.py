@@ -31,9 +31,10 @@ The port's copy of ``ceph_tpu/cluster/proc.py``. The cluster's device
 (``device=``, CUDA unless ``"cpu"``; it raises without a card) rides the
 conf document, and each child runs its daemon there: on the card every
 child is a CUDA context of its own, and loads the kernels the first
-process built (``utils/cuda_build.py`` writes them atomically). The mgr
-and mds kinds are not ported yet and raise ``NotImplementedError``
-(ROADMAP Queue A item 4).
+process built (``utils/cuda_build.py`` writes them atomically). A mgr
+child (``mgr_modules``, resolved by each module's ``NAME``) runs its
+``Mgr`` there too, gid = its pid. The mds kind is not ported yet and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -124,8 +125,6 @@ class ProcCluster:
                  device=None):
         assert stores is None, \
             "proc backend owns its stores (WALStore under data_dir)"
-        if mgr_modules is not None:
-            raise not_ported("the mgr daemon")
         # every child and the client run here (the conf carries it)
         self.device = resolve(device)
         self.cfg = dict(DEFAULT_CFG)
@@ -168,12 +167,17 @@ class ProcCluster:
                 self.keyring.add(f"mds.{n}")
         for rank, name in enumerate(names):
             self.monmap.add(name, rank, "127.0.0.1", _free_port())
+        mods = None
+        if self.mgr_modules is not None:
+            mods = [m if isinstance(m, str) else m.NAME
+                    for m in self.mgr_modules]
         cfg = dict(self.cfg)
         cfg["admin_socket_dir"] = self.asok_dir
         write_conf(self.conf_path, self.monmap, self.keyring,
                    config=cfg,
                    extra={"data_dir": self.data_dir,
-                          "device": str(self.device)})
+                          "device": str(self.device),
+                          "mgr_modules": mods})
         for name in names:
             await self._spawn(f"mon.{name}")
         self.client = Rados(self.monmap, keyring=self.keyring,
@@ -192,6 +196,13 @@ class ProcCluster:
         for i in range(self.n_osds):
             await self._spawn(f"osd.{i}")
         await self.wait_for_osds_up(self.n_osds, timeout=90.0)
+        if self.mgr_modules is not None:
+            for mname in mgr_names:
+                # every proc mgr starts STANDBY; the mgrmon promotes
+                # the first beacon on an empty map — same rule that
+                # re-elects after a SIGKILL
+                await self._spawn(f"mgr.{mname}")
+            await self.wait_for_mgr_active(timeout=60.0)
         await self.client.connect()
         self.spawn_to_healthy_s = \
             asyncio.get_event_loop().time() - t0
@@ -560,8 +571,30 @@ async def _child_main(args) -> None:
         # graceful exit TELLS the mon (MOSDMarkMeDown analog); a
         # SIGKILL never gets here — that's the crash-honesty contract
         await osd.stop(mark_down=True)
-    elif args.daemon in ("mgr", "mds"):
-        raise not_ported(f"the {args.daemon} daemon")
+    elif args.daemon == "mgr":
+        from ceph_tpu_torch.mgr import Mgr
+        mods = None
+        if doc.get("mgr_modules") is not None:
+            from ceph_tpu_torch.mgr import modules as _m
+            by_name = {c.NAME: c for c in (
+                _m.BalancerModule, _m.PGAutoscalerModule,
+                _m.PrometheusModule, _m.TracingModule,
+                _m.ProgressModule, _m.RestModule)}
+            from ceph_tpu_torch.mgr.tuner import TunerModule
+            by_name[TunerModule.NAME] = TunerModule
+            mods = [by_name[n] for n in doc["mgr_modules"]
+                    if n in by_name]
+        # gid = pid: unique across sibling processes AND respawns
+        # (the in-process itertools counter restarts at 1 per child)
+        mgr = Mgr(args.id, monmap, keyring=keyring, modules=mods,
+                  config=cfg, gid=os.getpid(), device=device)
+        mgr.mirror_global_config = True
+        await mgr.start(active=False)
+        _register_fault_verbs(mgr.asok, [mgr.monc.msgr], cfg)
+        await stop_ev.wait()
+        await mgr.stop()
+    elif args.daemon == "mds":
+        raise not_ported("the MDS daemon")
     else:
         raise SystemExit(f"unknown daemon type {args.daemon!r}")
 

@@ -6,10 +6,10 @@ CLI (`python -m ceph_tpu_torch.cluster.vstart`) both drive this.
 
 The port's copy of ``ceph_tpu/cluster/vstart.py``. A ``Cluster`` runs on
 ``device`` (CUDA unless ``"cpu"``; it raises without a card) and hands it
-to every ``Monitor``, ``OSD`` and ``Rados`` it starts; the CLI takes
-``--device``. The mgr daemon and the MDS are not ported yet: asking for
-them (``mgr_modules``, ``start_fs``, ``--mgr-num``, ``--mds-num``) raises
-``NotImplementedError`` (ROADMAP Queue A item 4).
+to every ``Monitor``, ``OSD``, ``Mgr`` and ``Rados`` it starts; the CLI
+takes ``--device``. ``mgr_modules`` (and ``--mgr-num`` with ``--serve``)
+starts ``n_mgrs`` mgrs, the first active. The MDS is not ported yet:
+``start_fs``, ``add_mds`` and ``--mds-num`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,9 +41,9 @@ DEFAULT_CFG = {
 
 
 def not_ported(what: str) -> NotImplementedError:
-    """The error for a daemon kind whose port has not landed."""
-    return NotImplementedError(
-        f"{what} is not ported to ceph_tpu_torch yet (ROADMAP Queue A item 4)")
+    """The error for a daemon kind whose port has not landed (today only
+    the MDS)."""
+    return NotImplementedError(f"{what} is not ported to ceph_tpu_torch yet")
 
 
 class Cluster:
@@ -69,8 +69,6 @@ class Cluster:
                  stores: list | None = None,
                  n_mgrs: int = 1, backend: str = "inproc",
                  device=None):
-        if mgr_modules is not None:
-            raise not_ported("the mgr daemon")
         self.cfg = dict(DEFAULT_CFG, **(config or {}))
         # every daemon and the client of this cluster run here
         self.device = resolve(device)
@@ -147,6 +145,18 @@ class Cluster:
                       device=self.device)
             self.osds.append(osd)
         await asyncio.gather(*[o.boot() for o in self.osds])
+        if self.mgr_modules is not None:
+            from ceph_tpu_torch.mgr import Mgr
+            for i, mname in enumerate(mgr_names):
+                mgr = Mgr(mname, self.monmap, keyring=self.keyring,
+                          modules=self.mgr_modules, config=self.cfg,
+                          device=self.device)
+                # first mgr promotes immediately and claims the
+                # MgrMap's active slot via its beacon; the rest are
+                # standbys that promote only when the map names them
+                await mgr.start(active=(i == 0))
+                self.mgrs.append(mgr)
+            self.mgr = self.mgrs[0]
         await self.client.connect()
         return self
 
@@ -594,11 +604,18 @@ async def _serve(args) -> None:
         # daemon admin sockets land next to the cluster one, so
         # `ceph_cli daemon <dir>/osd.N.asok ops` works out of the box
         cfg["admin_socket_dir"] = os.path.dirname(args.asok) or "."
-    if args.mgr_num > 0:
-        raise not_ported("the mgr daemon (--mgr-num)")
     if args.mds_num > 0:
         raise not_ported("the MDS (--mds-num)")
+    mgr_modules = None
+    if args.mgr_num > 0:
+        from ceph_tpu_torch.mgr.modules import (
+            BalancerModule, PGAutoscalerModule, ProgressModule,
+            PrometheusModule,
+        )
+        mgr_modules = [BalancerModule, PGAutoscalerModule,
+                       PrometheusModule, ProgressModule]
     c = await Cluster(n_mons=args.mon_num, n_osds=args.osd_num,
+                      n_mgrs=args.mgr_num, mgr_modules=mgr_modules,
                       data_dir=args.data_dir, config=cfg,
                       backend=args.backend,
                       device=args.device).start()

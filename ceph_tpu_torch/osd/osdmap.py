@@ -721,7 +721,8 @@ class OSDMap:
         return fd
 
     def calc_pg_upmaps(self, pool_ids=None, max_deviation: int = 5,
-                       max_iterations: int = 200) -> int:
+                       max_iterations: int = 200,
+                       inc: "Incremental | None" = None) -> int:
         """Generate pg_upmap_items flattening the PG distribution.
 
         ref: src/osd/OSDMap.cc OSDMap::calc_pg_upmaps — the mgr
@@ -738,7 +739,22 @@ class OSDMap:
         batched mapper; counts update incrementally per move.
 
         Returns the number of upmap changes recorded (and applied to this
-        map).
+        map; pass ``inc`` to also record them Incremental-style, in the
+        reference's order: a reverted entry as ``new_pg_upmap_items`` or
+        ``old_pg_upmap_items``, an added pair as ``new_pg_upmap_items``).
+
+        Two departures from the reference, both faults it has (ROADMAP
+        Queue C): a revert is made only when it lowers the sum of squared
+        deviations. Upstream's OSDMap::calc_pg_upmaps (src/osd/OSDMap.cc)
+        sums the squared deviations of a tentative change into
+        ``new_stddev`` and, ``if (new_stddev >= stddev)``, keeps the map
+        as it was ("stddev is not decreasing"); the port tests reverts
+        only, as its adds move a shard from an overfull OSD to an
+        underfull one (the reference reverts regardless, and on a k=8
+        m=3 pool over twelve hosts it reverts and re-adds the same pairs
+        at every pass, forever); and ``inc`` holds each PG once, in the list of
+        its final state (the reference can list a PG in both, which the
+        balancer applies set, then removed).
         """
         pools = {pid: self.pools[pid]
                  for pid in (pool_ids or self.pools)}
@@ -773,7 +789,8 @@ class OSDMap:
             pool = pools[pid]
             seeds = np.arange(pool.pg_num, dtype=np.uint32)
             mtab = self._mapping
-            if mtab is not None and mtab.serves(self, pid):
+            if mtab is not None and mtab.serves(self, pid) and \
+                    mtab.crush_raw(pid) is not None:
                 craw = mtab.crush_raw(pid)
                 pps = pool.raw_pg_to_pps(seeds, xp=np)
             else:
@@ -805,6 +822,29 @@ class OSDMap:
                 pps_by_pool[pid][seed:seed + 1])
             return up[0]
 
+        def improves(old_row, new_row) -> bool:
+            # the sum of squared deviations falls (upstream's
+            # `new_stddev >= stddev` test in OSDMap::calc_pg_upmaps)
+            delta = np.zeros(self.max_osd, dtype=np.float64)
+            np.add.at(delta, old_row[old_row != ITEM_NONE], -1)
+            np.add.at(delta, new_row[new_row != ITEM_NONE], 1)
+            dev = deviation()
+            return float(((dev + delta * (base_w > 0)) ** 2).sum()) < \
+                float((dev ** 2).sum())
+
+        def record(pg, pairs):
+            # the Incremental holds each PG's final state once: a PG
+            # both set and removed in one pass would be applied set then
+            # removed by the balancer, whatever the pass ended with
+            if pairs is None:
+                inc.new_pg_upmap_items.pop(pg, None)
+                if pg not in inc.old_pg_upmap_items:
+                    inc.old_pg_upmap_items.append(pg)
+            else:
+                if pg in inc.old_pg_upmap_items:
+                    inc.old_pg_upmap_items.remove(pg)
+                inc.new_pg_upmap_items[pg] = pairs
+
         changes = 0
         for _ in range(max_iterations):
             dev = deviation()
@@ -834,6 +874,15 @@ class OSDMap:
                         else:
                             self.pg_upmap_items.pop(pg, None)
                         new_row = remap_pg(pid, row)
+                        if not improves(up[row], new_row):
+                            # the shard would go back to an OSD as full
+                            # as `over`: a revert that does not lower
+                            # the spread is the cycle the reference
+                            # repeats forever (ROADMAP Queue C)
+                            self.pg_upmap_items[pg] = pairs
+                            continue
+                        if inc is not None:
+                            record(pg, reverted or None)
                     else:
                         # cheap pre-filters (dup/up/failure-domain) reject
                         # most candidates in O(1); the full pipeline then
@@ -866,6 +915,8 @@ class OSDMap:
                                     len(set(vals.tolist())) == len(vals) \
                                     and u in vals and over not in vals:
                                 new_row = cand
+                                if inc is not None:
+                                    record(pg, pairs + [(over, u)])
                                 break
                             # pipeline disagreed: roll back
                             if pairs:

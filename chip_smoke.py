@@ -244,6 +244,42 @@ set to 0 just before the cluster starts:
    markdowns, elections, wire bytes and the client's one-PG lookups
    per epoch.
 
+Then RBD images and the mgr, at full width (``rbd_path_phase``, after
+the OSD cluster path): the same layout (three mons on the CPU, twelve OSD
+daemons and the client on the card) with two mgr daemons, ``x`` and
+``y``, each with the reference's default modules (balancer in upmap
+mode, pg_autoscaler, prometheus, tracing, progress, tuner), run on the
+CPU as on hosts of their own (``RBD_ON_CPU``; ``--proc-child``
+hooks them too and answers ``smoke stats`` with their balancer ticks,
+promotions and demotions). The CLIs run as users run them, each in a
+process of its own through ``chip_smoke.py --cli-child``, which holds
+that process's launches against the plain versions:
+
+49. A k=8 m=3 pool of 32 PGs and a replicated pool of 128 (what the
+   autoscaler recommends for 12 OSDs and two pools); the seconds until a
+   mgr is active, and until the balancer's last two ticks changed
+   nothing on a clean cluster, with the upmaps it committed.
+50. ``rbd_cli create`` of ``vol0``, 1 GiB at order 22, on the k=8 m=3
+   pool.
+51. ``rbd bench``'s parameters through ``Image``, 16 in flight: the
+   whole image in sequential 4 MiB writes, 512 random 4 KiB writes, 512
+   random 4 KiB reads and a sequential read, every read equal to a host
+   mirror.
+52. ``vol1`` (64 MiB) on the replicated pool: a snap, 64 4 KiB writes,
+   the snap read back equal to the pre-snap mirror, protect, clone, a
+   copy-up write to the clone, and ``export-diff``/``import-diff`` into
+   a fresh image, equal in bytes.
+53. ``ceph_cli mgr fail``; the standby takes over and its first balancer
+   tick changes nothing; prometheus's ``/metrics`` scraped on both mgrs;
+   ``ceph_cli progress json`` and ``status``.
+54. No markdown, no election, no mgr promotion or demotion but the
+   first active's and the failover's; the pools' ``pg_num`` unchanged;
+   every ladder rung and ``*_device_failures`` counter 0. One
+   ``rbd_path`` JSON line gives the rates, the mgr's seconds, upmaps,
+   scrapes and worst loop stall, both kernels' launches and CUDA-event
+   ms by process kind (mgr, OSD, client, CLI), and the aggregators'
+   distinct PGs per flush.
+
 Last: one JSON line listing both kernels, then the card from
 nvidia-smi, then the last line ``{"ok": true, "device": {...}}``.
 
@@ -304,6 +340,15 @@ PG_OSDS, PG_OBJS = 12, 128
 PG_RMW_OPS = 256                       # 4 KiB partial writes
 PG_SCRUB_OBJS = PG_NATIVE_OBJS = 16
 OBJ_RESERVE_LARGE, OBJ_RESERVE_SMALL = 4 << 30, 512 << 20
+
+
+T_SMOKE = time.perf_counter()
+
+
+def mark(what: str) -> None:
+    """The smoke's own clock: seconds since the script started."""
+    print(f"smoke: {what} done at {time.perf_counter() - T_SMOKE:.1f} s",
+          flush=True)
 
 
 def require(cond: bool, what: str) -> None:
@@ -476,29 +521,41 @@ def main() -> None:
                 "--json"]
     ec_benchmark.main(["--workload", "encode", *flagship])
     ec_benchmark.main(["--workload", "decode", "--erasures", "2", *flagship])
+    mark("ec main path")
 
     with multiprocessing.get_context("spawn").Pool(8) as pool:
         crush = crush_phases(spec, pool)
+        mark("crush")
         placement_launches = placement_epochs_phase(card, pool)
+        mark("placement_epochs")
         mon_launches, mon_worst = mon_path_phase(card, pool)
+        mark("mon_path")
         cluster = osd_cluster_path_phase(card, pool)
+        mark("osd_cluster_path")
+    rbd = rbd_path_phase(card)
+    mark("rbd_path")
     crush["launches_by_path"] = {"crush_main": crush["launches"],
                                  "placement_epochs": placement_launches,
                                  "mon_path": mon_launches,
-                                 "osd_cluster_path": cluster["crush"][0]}
+                                 "osd_cluster_path": cluster["crush"][0],
+                                 "rbd_path": rbd["crush"][0]}
     crush["launches"] += placement_launches + mon_launches + \
-        cluster["crush"][0]
+        cluster["crush"][0] + rbd["crush"][0]
     crush["max_abs_err"] = max(crush["max_abs_err"], mon_worst,
-                               cluster["crush"][1])
+                               cluster["crush"][1], rbd["crush"][1])
     by_path = {"encode_decode": launches}
     plane_launches, err_plane = ec_plane_phases(ec, enc_bm, dec_bm, card,
                                                 spec)
     by_path.update(plane_launches)
     by_path.update(ec_plugin_phase(registry, card))
+    mark("ec plane and plugins")
     obj_launches, err_obj = ec_object_path_phase(registry, card, spec)
     by_path.update(obj_launches)
+    mark("ec_object_path")
     by_path["ec_pg_path"], err_pg = ec_pg_path_phase(card, spec)
+    mark("ec_pg_path")
     by_path["osd_cluster_path"] = cluster["gf"][0]
+    by_path["rbd_path"] = rbd["gf"][0]
     print(f"gf_encode launches by path: {json.dumps(by_path)}")
 
     # -- result ----------------------------------------------------------------
@@ -510,7 +567,7 @@ def main() -> None:
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
         "max_abs_err": max(err_enc, err_dec, err_plane, err_obj, err_pg,
-                           cluster["gf"][1]),
+                           cluster["gf"][1], rbd["gf"][1]),
         "ms": enc_ms,
         "plain_ms": plain_enc_ms,
         "bound_ms": enc_bound_s * 1e3,
@@ -1225,11 +1282,72 @@ def ec_object_path_phase(registry, card: str, spec) -> tuple[dict, int]:
              "ec_daemon_path": daemon_launches}, log.worst)
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(a: int, b: int, c: int) -> tuple:
+    """One crush_hashmix round on Python ints (ref: crush/hash.c)."""
+    a = (a - b - c) & _M32
+    a ^= c >> 13
+    b = (b - c - a) & _M32
+    b ^= (a << 8) & _M32
+    c = (c - a - b) & _M32
+    c ^= b >> 13
+    a = (a - b - c) & _M32
+    a ^= c >> 12
+    b = (b - c - a) & _M32
+    b ^= (a << 16) & _M32
+    c = (c - a - b) & _M32
+    c ^= b >> 5
+    a = (a - b - c) & _M32
+    a ^= c >> 3
+    b = (b - c - a) & _M32
+    b ^= (a << 10) & _M32
+    c = (c - a - b) & _M32
+    c ^= b >> 15
+    return a, b, c
+
+
+def _hash32_3(a: int, b: int, c: int) -> int:
+    """crush_hash32_rjenkins1_3 on Python ints."""
+    from ceph_tpu_torch.crush.hash import CRUSH_HASH_SEED
+    a, b, c = a & _M32, b & _M32, c & _M32
+    h = CRUSH_HASH_SEED ^ a ^ b ^ c
+    x, y = 231232, 1232
+    a, b, h = _mix32(a, b, h)
+    c, x, h = _mix32(c, x, h)
+    y, a, h = _mix32(y, a, h)
+    b, x, h = _mix32(b, x, h)
+    y, c, h = _mix32(y, c, h)
+    return h
+
+
+def _scalar_spec():
+    """``mapper_ref`` with its two hot spots served without numpy
+    scalars, once per worker process: ``crush_ln`` from a table of all
+    65,536 of its values (computed by ``crush_ln`` itself), and ``_h3``
+    on Python ints, held equal to ``hash32_3`` on 4,096 random triples
+    first. The same rows, ~10x sooner on the 10,240-OSD maps."""
+    from ceph_tpu_torch.crush import hash as chash
+    from ceph_tpu_torch.crush import ln_table, mapper_ref
+    if mapper_ref._h3 is not _hash32_3:
+        t = np.random.default_rng(SEED).integers(
+            0, 1 << 32, (3, 4096), dtype=np.uint64).astype(np.uint32)
+        fast = [_hash32_3(int(a), int(b), int(c)) for a, b, c in t.T]
+        require(np.array_equal(np.asarray(fast, dtype=np.uint32),
+                               chash.hash32_3(t[0], t[1], t[2])),
+                "the scalar checks' hash differs from hash32_3")
+        mapper_ref.crush_ln = ln_table.crush_ln(
+            np.arange(1 << 16)).astype(np.int64).tolist().__getitem__
+        mapper_ref._h3 = _hash32_3
+    return mapper_ref
+
+
 def scalar_rows(job):
     """mapper_ref.do_rule over seeds, padded to numrep (a worker of the
     scalar-check pool)."""
-    from ceph_tpu_torch.crush import mapper_ref
     from ceph_tpu_torch.crush.types import ITEM_NONE
+    mapper_ref = _scalar_spec()
     m, rule, xs, numrep, weight, cargs = job
     rows = []
     for x in xs:
@@ -3566,13 +3684,15 @@ def flush_summary(rows: dict) -> dict:
 
 
 def proc_child(argv: list) -> None:
-    """A daemon of the ``osd_cluster_path`` cluster, in a process of its
-    own (``chip_smoke.py --proc-child`` + ``ceph_tpu_torch.cluster.proc``'s
-    arguments). It runs the port's child entry point with the phase's
-    hooks around both kernels and both aggregators, and adds ``smoke *``
-    verbs to the daemon's admin socket: the step label, the launches
-    held against their plain versions, counters, the tracked table, the
-    residency cache's objects, and a shard's bytes."""
+    """A daemon of the ``osd_cluster_path`` or ``rbd_path`` cluster, in a
+    process of its own (``chip_smoke.py --proc-child`` +
+    ``ceph_tpu_torch.cluster.proc``'s arguments). It runs the port's
+    child entry point with the phase's hooks around both kernels and both
+    aggregators, and adds ``smoke *`` verbs to the daemon's admin socket:
+    the step label, the launches held against their plain versions,
+    counters, the tracked table, the residency cache's objects, a
+    shard's bytes, and for a mgr its balancer ticks, promotions and
+    demotions and its prometheus port."""
     import os
     # seconds from the parent's spawn (its wall clock, passed down)
     t_start = float(os.environ.get("CHIP_SMOKE_SPAWNED", time.time()))
@@ -3787,15 +3907,170 @@ def proc_child(argv: list) -> None:
         await real_start(mon, *a, **kw)
         base = common(mon.asok, time.time() - t_start)
         register(mon.asok, "smoke stats", lambda: {
-            **base, "wire": [mon.msgr.wire],
+            **base, "wire": [mon.msgr.wire], "devices": [str(mon.device)],
             "election_epoch": mon.elector.epoch,
+            "leader": mon.is_leader(), "quorum": list(mon.quorum),
             "first_launches": devmon().functions, "loop_lag": dict(lag),
             "fsync": dict(fsyncs), "slow_commands": slow_cmds})
+    # the mgr: every balancer tick's outcome, and each promotion and
+    # demotion (a failover the phase did not ask for shows here)
+    from ceph_tpu_torch.mgr import daemon as mgr_daemon
+    from ceph_tpu_torch.mgr import modules as mgr_modules
+    ticks, moves = [], {"promote": 0, "demote": 0}
+    real_tick = mgr_modules.BalancerModule.tick
+
+    async def balancer_tick(mod):
+        out = "cancelled"
+        try:
+            await real_tick(mod)
+            out = mod.last_changes
+        except Exception as e:
+            out = f"{type(e).__name__}: {e}"
+            raise
+        finally:
+            ticks.append([time.time(), out, logs["gf"].label])
+    mgr_modules.BalancerModule.tick = balancer_tick
+    module_ticks = {}
+    real_loop = mgr_daemon.Mgr._module_loop
+
+    async def module_loop(mgr, mod):
+        # each module's ticks, counted as they end (wrapped once, at the
+        # module's first promotion)
+        if "tick" not in vars(mod):
+            real_mod_tick = mod.tick
+
+            async def tick():
+                await real_mod_tick()
+                module_ticks[mod.NAME] = module_ticks.get(mod.NAME, 0) + 1
+            mod.tick = tick
+        await real_loop(mgr, mod)
+    mgr_daemon.Mgr._module_loop = module_loop
+    real_promote, real_demote = mgr_daemon.Mgr.promote, mgr_daemon.Mgr.demote
+
+    async def promote(mgr):
+        was = mgr.active
+        await real_promote(mgr)
+        moves["promote"] += mgr.active and not was
+
+    def demote(mgr):
+        was = mgr.active
+        real_demote(mgr)
+        moves["demote"] += was and not mgr.active
+    mgr_daemon.Mgr.promote, mgr_daemon.Mgr.demote = promote, demote
+    real_mgr_start = mgr_daemon.Mgr.start
+
+    async def mgr_start(mgr, *a, **kw):
+        await real_mgr_start(mgr, *a, **kw)
+        base = common(mgr.asok, time.time() - t_start)
+
+        def stats():
+            prom = next((m for m in mgr.modules
+                         if m.NAME == "prometheus"), None)
+            return {**base, "name": mgr.name, "gid": mgr.gid,
+                    "active": mgr.active, "moves": dict(moves),
+                    "devices": sorted({str(mgr.device),
+                                       str(mgr.monc.device)}),
+                    "balancer_ticks": list(ticks),
+                    "module_ticks": dict(module_ticks),
+                    "prometheus_port": prom.port if prom else None,
+                    "table": {"epoch": mgr._mapping.epoch,
+                              "pools": sorted(mgr._mapping._pools)},
+                    "wire": [mgr.monc.msgr.wire],
+                    "first_launches": devmon().functions,
+                    "loop_lag": dict(lag), "fsync": dict(fsyncs)}
+        register(mgr.asok, "smoke stats", stats)
+    mgr_daemon.Mgr.start = mgr_start
     daemon.OSD.boot, Monitor.start = boot, start
     with GfLaunchLog(gkern) as glog, StepLaunchLog(ckern) as clog, \
             FlushLog() as flog:
         logs.update(gf=glog, crush=clog, flush=flog)
         proc.main(argv)
+
+
+async def bounded(inflight: int, fns) -> list:
+    """Run every coroutine factory, ``inflight`` at a time (a client's
+    ops in flight); their results in order."""
+    sem = asyncio.Semaphore(inflight)
+
+    async def one(fn):
+        async with sem:
+            return await fn()
+    return await asyncio.gather(*[one(f) for f in fns])
+
+
+def smoke_cluster(child_log, here: str, on_cpu=("mon.",)):
+    """The port's ``ProcCluster`` with each child started through
+    ``chip_smoke.py --proc-child`` (the hooks) and its output kept in
+    ``child_log``. The children whose names start with one of ``on_cpu``
+    run on the CPU, as on hosts of their own without the card (the conf's
+    copy with device=cpu); the rest on the conf's device."""
+    import os
+
+    from ceph_tpu_torch.cluster.proc import ProcCluster
+
+    class SmokeCluster(ProcCluster):
+        async def _exec(self, child):
+            child.argv = [sys.executable, os.path.abspath(CHILD_SCRIPT),
+                          "--proc-child"] + child.argv[3:]
+            if child.name.startswith(on_cpu):
+                with open(self.conf_path) as f:
+                    doc = json.load(f)
+                cpu_conf = f"{self.conf_path}.cpu"
+                with open(cpu_conf, "w") as f:
+                    json.dump(dict(doc, device="cpu"), f)
+                at = child.argv.index("--conf") + 1
+                child.argv[at] = cpu_conf
+            env = dict(os.environ)
+            env["PYTHONPATH"] = os.pathsep.join(
+                p for p in (here, env.get("PYTHONPATH")) if p)
+            env["CHIP_SMOKE_SPAWNED"] = repr(time.time())
+            # one CPU thread per daemon for torch's and numpy's host ops
+            env["OMP_NUM_THREADS"] = env["MKL_NUM_THREADS"] = "1"
+            # the mons and mgrs, which a deployment runs on hosts of
+            # their own, keep their share of this one host's cores: the
+            # OSDs run at a lower priority (nice 5)
+            nice = 5 if child.name.startswith("osd.") else 0
+            child.proc = await asyncio.create_subprocess_exec(
+                *child.argv, env=env, stdout=child_log,
+                stderr=subprocess.STDOUT,
+                preexec_fn=(lambda: os.nice(nice)) if nice else None)
+            child.started_at = asyncio.get_event_loop().time()
+    return SmokeCluster
+
+
+async def start_cluster(c, make, timed, card: str, what: str):
+    """Starts ``c`` (the step ``start``) and returns it. A start that
+    fails while two mons each lead, the reference's elector fault that
+    the port keeps (ROADMAP Queue C: a mon acks two proposers of one
+    epoch), stops ``c`` and starts ``make()`` in its place, once. The
+    returned cluster's ``split_starts`` lists each split's leaders."""
+    try:
+        await timed("start", c.start())
+        c.split_starts = []
+        return c
+    except Exception:
+        leaders = []
+        for n in [n for n in c.children if n.startswith("mon.")]:
+            try:
+                out = await asyncio.wait_for(
+                    c.daemon_command(n, "smoke stats"), 5)
+            except (OSError, asyncio.TimeoutError):
+                continue
+            if out.get("leader"):
+                leaders.append([n, out["election_epoch"], out["quorum"]])
+        if len(leaders) < 2:
+            raise
+        print(f"[{card}] {what}: the start failed with two leaders "
+              f"{leaders}; a fresh cluster starts once", flush=True)
+        await c.stop()
+    fresh = make()
+    try:
+        await timed("start", fresh.start())
+    except BaseException:
+        await fresh.stop()
+        raise
+    fresh.split_starts = [leaders]
+    return fresh
 
 
 def osd_cluster_path_phase(card: str, pool) -> dict:
@@ -3809,7 +4084,6 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
     any launch from its plain version."""
     import os
 
-    from ceph_tpu_torch.cluster.proc import ProcCluster
     from ceph_tpu_torch.crush import kernels as ckern
     from ceph_tpu_torch.osd.osdmap import STATE_UP
     from ceph_tpu_torch.utils.devmon import devmon
@@ -3823,48 +4097,7 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
     os.makedirs(os.path.dirname(os.path.join(here, CL_LOG)), exist_ok=True)
     child_log = open(os.path.join(here, CL_LOG), "wb")
 
-    class SmokeCluster(ProcCluster):
-        """The port's ``ProcCluster`` with each child started through
-        ``chip_smoke.py --proc-child`` (the hooks) and its output kept in
-        ``CL_LOG``."""
-
-        async def _exec(self, child):
-            child.argv = [sys.executable, os.path.abspath(CHILD_SCRIPT),
-                          "--proc-child"] + child.argv[3:]
-            if child.name.startswith("mon."):
-                # the mons run on the CPU, as on hosts of their own
-                # without the card: the conf's copy with device=cpu
-                with open(self.conf_path) as f:
-                    doc = json.load(f)
-                mon_conf = f"{self.conf_path}.mon"
-                with open(mon_conf, "w") as f:
-                    json.dump(dict(doc, device="cpu"), f)
-                at = child.argv.index("--conf") + 1
-                child.argv[at] = mon_conf
-            env = dict(os.environ)
-            env["PYTHONPATH"] = os.pathsep.join(
-                p for p in (here, env.get("PYTHONPATH")) if p)
-            env["CHIP_SMOKE_SPAWNED"] = repr(time.time())
-            # one CPU thread per daemon for torch's and numpy's host ops
-            env["OMP_NUM_THREADS"] = env["MKL_NUM_THREADS"] = "1"
-            # the mons, which a deployment runs on hosts of their own,
-            # keep their share of this one host's cores: the OSDs run
-            # at a lower priority (nice 5)
-            nice = 5 if child.name.startswith("osd.") else 0
-            child.proc = await asyncio.create_subprocess_exec(
-                *child.argv, env=env, stdout=child_log,
-                stderr=subprocess.STDOUT,
-                preexec_fn=(lambda: os.nice(nice)) if nice else None)
-            child.started_at = asyncio.get_event_loop().time()
-
-    async def bounded(fns):
-        """Run every coroutine factory, CL_INFLIGHT at a time."""
-        sem = asyncio.Semaphore(CL_INFLIGHT)
-
-        async def one(fn):
-            async with sem:
-                return await fn()
-        return await asyncio.gather(*[one(f) for f in fns])
+    SmokeCluster = smoke_cluster(child_log, here)
 
     async def timed(what, coro):
         t0 = time.perf_counter()
@@ -3875,8 +4108,8 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
         return out
 
     async def read_all(ec_io, what):
-        got = await bounded([lambda o=o: ec_io.read(o, timeout=CL_DEADLINE)
-                             for o in mirror])
+        got = await bounded(CL_INFLIGHT, [
+            lambda o=o: ec_io.read(o, timeout=CL_DEADLINE) for o in mirror])
         for oid, data in zip(mirror, got):
             require(data == bytes(mirror[oid]),
                     f"{what}: {oid} differs from its mirror")
@@ -3893,9 +4126,9 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
         # queue), so the mirror takes them in that order
         for oid, off, data in jobs:
             mirror[oid][off:off + RMW_BYTES] = data
-        await bounded([lambda j=j: ec_io.write(j[0], j[2], offset=j[1],
-                                                timeout=CL_DEADLINE)
-                       for j in jobs])
+        await bounded(CL_INFLIGHT, [
+            lambda j=j: ec_io.write(j[0], j[2], offset=j[1],
+                                    timeout=CL_DEADLINE) for j in jobs])
 
     async def wait_for(pred, what):
         t0 = time.perf_counter()
@@ -3907,8 +4140,10 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
     async def run(clog):
         clog.real.launches = 0
         clog.label = "start"
-        c = SmokeCluster(n_mons=CL_MONS, n_osds=CL_OSDS,
-                         config=CL_CONFIG, device="cuda")
+        def make():
+            return SmokeCluster(n_mons=CL_MONS, n_osds=CL_OSDS,
+                                config=CL_CONFIG, device="cuda")
+        c = make()
         # daemon -> one `smoke drain` and one `smoke stats` per process
         # it ran as (a revived OSD is a second process)
         children, stats = {}, {}
@@ -3943,7 +4178,8 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
             return {n: o["election_epoch"] for n, o in zip(mons, outs)}
 
         try:
-            await timed("start", c.start())
+            c = await start_cluster(c, make, timed, card, "osd_cluster_path")
+            rec["split_starts"] = c.split_starts
             await asyncio.gather(*[c.wait_for_daemon_ready(n, 120)
                                    for n in c.children])
             cl = c.client
@@ -4016,7 +4252,7 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
                 hdrs[f"rbd_header.{i:04x}"] = rng.integers(
                     0, 256, CL_HDR, dtype=np.uint8).tobytes()
             await label("write")
-            await timed("write", bounded([
+            await timed("write", bounded(CL_INFLIGHT, [
                 lambda o=o: ec_io.write_full(o, bytes(mirror[o]),
                                              timeout=CL_DEADLINE)
                 for o in mirror]))
@@ -4026,7 +4262,7 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
                 await rep_io.setxattr(oid, "rbd.features", b"\x01")
                 await rep_io.set_omap(oid, "size", str(OBJ_SIZE).encode())
                 await rep_io.set_omap(oid, "order", b"22")
-            await timed("headers", bounded([
+            await timed("headers", bounded(CL_INFLIGHT, [
                 lambda o=o, d=d: header(o, d) for o, d in hdrs.items()]))
             await label("read")
             await timed("read", read_all(ec_io, "read"))
@@ -4182,7 +4418,7 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
             # -- 48. read everything back -------------------------------------
             await label("final_read")
             await timed("final_read", read_all(ec_io, "final read"))
-            got = await bounded([lambda o=o: rep_io.read(
+            got = await bounded(CL_INFLIGHT, [lambda o=o: rep_io.read(
                 o, timeout=CL_DEADLINE) for o in hdrs])
             require(got == list(hdrs.values()),
                     "osd cluster: a header object differs")
@@ -4401,8 +4637,607 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
             "crush": (crush["launches"], crush["worst"])}
 
 
+# -- RBD images and the mgr (rbd_path) ----------------------------------------
+# PERF.md section 4's deployment with Ceph's documented RBD setup ("Erasure
+# Coding with Overwrites", "Block Devices"): a 1 GiB image (order 22) on a
+# k=8 m=3 pool, one with snapshots and a clone on a replicated pool, and two
+# mgrs with the reference's default modules.
+RBD_MONS, RBD_OSDS, RBD_MGRS = 3, 12, 2
+# PGAutoscalerModule.recommend for 12 OSDs and two pools: 32 at size 11,
+# 128 at size 3, so the autoscaler proposes no split
+RBD_EC_PGS, RBD_REP_PGS = 32, 128
+RBD_IMAGE, RBD_ORDER = 1 << 30, 22          # 256 objects of 4 MiB
+RBD_INFLIGHT = 16                           # rbd bench --io-threads 16
+# rbd bench --io-size 4K; its --io-total (1 GiB) cut to 2 MiB for time
+RBD_RAND_OPS, RBD_RAND_BYTES = 512, 4096
+RBD_SNAP_IMAGE, RBD_SNAP_WRITES = 64 << 20, 64
+RBD_MGR_MODULES = ("balancer", "pg_autoscaler", "prometheus", "tracing",
+                   "progress", "tuner")     # Mgr(modules=None)'s list
+# The two mgr processes run on the CPU, as on hosts of their own: on an
+# H100 each one's first sweep of the `indep` pool (`Mgr.get("osd_map")`
+# -> `OSDMapMapping._sweep_pool` -> `Mapper._vm_map`) stalled its loop
+# 5-17 s beside the twelve OSDs' sweeps, past the 5 s beacon grace, and
+# the mon failed each over in turn (PERF.md section 4).
+# tests/test_torch_cuda_rbd.py holds Mgr(device="cuda")'s table and
+# balancer on the card. The mons run on the CPU as in the OSD cluster path.
+RBD_ON_CPU = ("mon.", "mgr.")
+RBD_QUIET_TICKS = 2       # balancer ticks with no change before the I/O
+RBD_CONFIG = {"osd_ec_resident_bytes": OBJ_RESIDENT_BYTES,
+              "mon_osd_down_out_interval": 600.0,
+              # Ceph's pg_autoscaler sleep_interval (60 s): at the
+              # reference's 5 s a tick between the two pools' creation
+              # saw one pool and split the EC pool to 64 (PERF.md section 4)
+              "mgr_pg_autoscaler_interval": 60.0}
+RBD_LOG = "build/rbd_path.log"              # the daemons' and CLIs' output
+
+
+def cli_child(argv: list) -> None:
+    """One of the port's CLIs (``ceph_tpu_torch.bench.<argv[0]>``, the
+    rest its arguments) in a process of its own, as a user runs it, with
+    both kernels' hooks: every launch it makes is held against its plain
+    version, and the counts go as one JSON line to the file
+    ``CHIP_SMOKE_CLI_LOG`` names. Exits with the CLI's code."""
+    import importlib
+    import os
+    from ceph_tpu_torch.crush import kernels as ckern
+    from ceph_tpu_torch.gf import kernels as gkern
+    tool = importlib.import_module(f"ceph_tpu_torch.bench.{argv[0]}")
+    with GfLaunchLog(gkern) as glog, StepLaunchLog(ckern) as clog:
+        glog.label = clog.label = argv[0]
+        rc = tool.main(argv[1:])
+        torch.cuda.synchronize()
+        glog.drain(f"{argv[0]} process")
+        clog.drain(f"{argv[0]} process")
+    with open(os.environ["CHIP_SMOKE_CLI_LOG"], "a") as f:
+        f.write(json.dumps({
+            "tool": argv[0], "rc": rc,
+            "gf": {"launches": glog.real.launches, "checked": glog.checked,
+                   "worst": glog.worst, "ms": sum(glog.ms.values())},
+            "crush": {"launches": clog.real.launches,
+                      "checked": clog.checked, "worst": clog.worst,
+                      "ms": sum(e["ms"] for e in clog.by_label.values())}})
+            + "\n")
+    sys.exit(rc)
+
+
+def rbd_path_phase(card: str) -> dict:
+    """RBD images and the mgr on the card: a ``ProcCluster`` of three mons
+    (on the CPU), twelve OSDs, two mgrs and the client (on the card); an
+    ``rbd bench``-style run through ``Image`` on a 1 GiB image of a k=8
+    m=3 pool, snapshots, a clone and an incremental export/import on a
+    replicated pool, and a mgr failover. Returns the launches of both
+    kernels on the path (every daemon's and CLI's counts start at 0 with
+    its process, the client's are set to 0 just before the cluster
+    starts, and all are read as the processes end) and the largest
+    difference of any launch from its plain version."""
+    import os
+
+    from ceph_tpu_torch.crush import kernels as ckern
+    from ceph_tpu_torch.mgr.modules import PGAutoscalerModule
+    from ceph_tpu_torch.osd.osdmap import STATE_UP
+    from ceph_tpu_torch.rbd import RBD
+
+    rng = np.random.default_rng(SEED + 49)
+    gib = 1 << 30
+    obj = 1 << RBD_ORDER
+    host_s, rec = {}, {}
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.dirname(os.path.join(here, RBD_LOG)), exist_ok=True)
+    child_log = open(os.path.join(here, RBD_LOG), "wb")
+    cli_log = os.path.join(here, RBD_LOG + ".cli")
+    if os.path.exists(cli_log):
+        os.remove(cli_log)
+    SmokeCluster = smoke_cluster(child_log, here, RBD_ON_CPU)
+
+    class StubMgr:
+        config = dict(RBD_CONFIG)        # the cluster's, as the mgr's
+    auto = PGAutoscalerModule(StubMgr())
+    rec["autoscaler"] = {"ec": auto.recommend(RBD_OSDS, 2, K + M),
+                         "replicated": auto.recommend(RBD_OSDS, 2, 3)}
+    require(rec["autoscaler"] == {"ec": RBD_EC_PGS,
+                                  "replicated": RBD_REP_PGS},
+            f"rbd: the autoscaler recommends {rec['autoscaler']}")
+
+    async def timed(what, coro):
+        t0 = time.perf_counter()
+        out = await coro
+        host_s[what] = time.perf_counter() - t0
+        print(f"[{card}] rbd_path {what}: {host_s[what]:.3f} s", flush=True)
+        return out
+
+    async def wait_for(pred, what, limit=CL_DEADLINE):
+        t0 = time.perf_counter()
+        while not await pred():
+            require(time.perf_counter() - t0 < limit,
+                    f"rbd: {what} after {limit} s")
+            await asyncio.sleep(0.2)
+
+    async def run(clog):
+        clog.real.launches = 0
+        clog.label = "start"
+        def make():
+            return SmokeCluster(
+                n_mons=RBD_MONS, n_osds=RBD_OSDS, n_mgrs=RBD_MGRS,
+                mgr_modules=list(RBD_MGR_MODULES), config=RBD_CONFIG,
+                device="cuda")
+        c = make()
+        children, stats = {}, {}
+
+        async def ask(name, cmd):
+            out = await c.daemon_command(name, cmd)
+            require("error" not in out, f"rbd: {name} {cmd}: {out}")
+            return out
+
+        async def label(step):
+            clog.label = step
+            await asyncio.gather(*[ask(n, {"prefix": "smoke label",
+                                           "label": step})
+                                   for n in c.children])
+
+        async def cli(tool, *words):
+            """A CLI run as a user runs it, through ``--cli-child``;
+            returns its standard output."""
+            env = dict(os.environ, CHIP_SMOKE_CLI_LOG=cli_log)
+            env["PYTHONPATH"] = os.pathsep.join(
+                p for p in (here, env.get("PYTHONPATH")) if p)
+            t0 = time.perf_counter()
+            proc = await asyncio.create_subprocess_exec(
+                sys.executable, os.path.abspath(CHILD_SCRIPT),
+                "--cli-child", tool, "-c", c.conf_path, "--device", "cuda",
+                *words, env=env, stdout=subprocess.PIPE, stderr=child_log)
+            out, _ = await proc.communicate()
+            rec.setdefault("cli_s", []).append(
+                [tool, " ".join(words), time.perf_counter() - t0])
+            require(proc.returncode == 0,
+                    f"rbd: {tool} {' '.join(words)} exited "
+                    f"{proc.returncode}")
+            return out.decode()
+
+        async def mgr_stats():
+            names = [n for n in c.children if n.startswith("mgr.")]
+            outs = await asyncio.gather(*[ask(n, "smoke stats")
+                                          for n in names])
+            return dict(zip(names, outs))
+
+        async def active_mgr():
+            st = await c.client.status()
+            mm = st.get("mgrmap", {})
+            return f"mgr.{mm['active_name']}" if mm.get("available") \
+                else None
+
+        async def scrape(name, port):
+            """A GET of the mgr's /metrics, again until its exporter has
+            rendered once: seconds and bytes of the one that answered."""
+            for _ in range(50):
+                t0 = time.perf_counter()
+                reader, writer = await asyncio.open_connection(
+                    "127.0.0.1", port)
+                writer.write(b"GET /metrics HTTP/1.1\r\nHost: x\r\n\r\n")
+                await writer.drain()
+                body = await asyncio.wait_for(reader.read(), 30)
+                dt = time.perf_counter() - t0
+                writer.close()
+                text = body.decode(errors="replace")
+                if "# no scrape yet" not in text:
+                    break
+                await asyncio.sleep(0.2)
+            require(" 200 OK" in text.split("\r\n", 1)[0] and
+                    f"ceph_osd_up {RBD_OSDS}" in text and
+                    "ceph_mgr_available 1" in text,
+                    f"rbd: {name}'s /metrics: {text[:300]!r}")
+            return {"mgr": name, "s": dt, "bytes": len(body)}
+
+        async def collect(names):
+            # one daemon at a time: each drain runs the plain versions
+            for n in names:
+                stats.setdefault(n, []).append(await ask(n, "smoke stats"))
+                children.setdefault(n, []).append(
+                    await ask(n, "smoke drain"))
+
+        async def election_epochs():
+            mons = [n for n in c.children if n.startswith("mon.")]
+            outs = await asyncio.gather(*[ask(n, "smoke stats")
+                                          for n in mons])
+            return {n: o["election_epoch"] for n, o in zip(mons, outs)}
+
+        try:
+            # -- 49. start everything, the mgrs included ----------------------
+            # returns with a mgr active
+            c = await start_cluster(c, make, timed, card, "rbd_path")
+            rec["split_starts"] = c.split_starts
+            await asyncio.gather(*[c.wait_for_daemon_ready(n, 120)
+                                   for n in c.children])
+            cl = c.client
+            require(cl.monc.device.type == "cuda",
+                    "rbd: the client is not on the card")
+            first = await active_mgr()
+            require(first is not None, "rbd: no active mgr")
+
+            # active: the mgr the map names has promoted and its modules
+            # ran their first ticks, so the autoscaler's next look comes
+            # after both pools exist (a look between the two creations
+            # sees one pool and splits the first)
+            async def ticked_once():
+                st = (await mgr_stats())[first]
+                return st["active"] and st["module_ticks"].get(
+                    "balancer") and st["module_ticks"].get("pg_autoscaler")
+            await wait_for(ticked_once, "the active mgr never ticked")
+            host_s["mgr_active"] = asyncio.get_event_loop().time() - min(
+                ch.started_at for n, ch in c.children.items()
+                if n.startswith("mgr."))
+            elections0 = await election_epochs()
+            events, epochs = [], []
+            prev = {"up": None}
+
+            async def on_map(om):
+                up = (np.asarray(om.osd_state) & STATE_UP) != 0
+                if prev["up"] is not None and len(prev["up"]) == len(up):
+                    for o in np.flatnonzero(prev["up"] & ~up):
+                        events.append(("down", int(o), om.epoch))
+                prev["up"] = up
+                epochs.append(om.epoch)
+            cl.monc.map_callbacks.append(on_map)
+
+            await label("pools")
+            ret, rs, _ = await cl.mon_command(
+                {"prefix": "osd erasure-code-profile set", "name": "rbd_ec",
+                 "profile": [f"k={K}", f"m={M}", "technique=reed_sol_van",
+                             "crush-failure-domain=host",
+                             f"stripe_unit={OBJ_C}"]})
+            require(ret == 0, f"rbd: profile: {rs}")
+            ret, rs, _ = await cl.mon_command(
+                {"prefix": "osd pool create", "pool": "rbd_ec",
+                 "pg_num": RBD_EC_PGS, "pool_type": "erasure",
+                 "erasure_code_profile": "rbd_ec"})
+            require(ret == 0, f"rbd: ec pool: {rs}")
+            await cl.pool_create("rbd", pg_num=RBD_REP_PGS, size=3)
+
+            async def has_pools():
+                om = cl.monc.osdmap
+                return om is not None and {"rbd_ec", "rbd"} <= {
+                    p.name for p in om.pools.values()}
+            await wait_for(has_pools, "the client's map lacks the pools")
+            t0 = time.perf_counter()
+            await c.wait_for_clean(timeout=CL_DEADLINE)
+            host_s["to_clean_after_create"] = time.perf_counter() - t0
+            clean_at = time.time()
+
+            # the balancer quiet (no change in its last ticks after the
+            # first clean) on a clean cluster: its upmaps move PGs before
+            # any image data exists
+            async def quiet():
+                st = (await mgr_stats())[first]
+                done = [t for t in st["balancer_ticks"] if t[0] >= clean_at]
+                st_cl = await cl.status()
+                pgmap = st_cl["pgmap"]
+                return len(done) >= RBD_QUIET_TICKS and \
+                    all(t[1] == 0 for t in done[-RBD_QUIET_TICKS:]) and \
+                    pgmap["states"].get("clean") == pgmap["num_pgs"]
+            await wait_for(quiet, "the balancer never went quiet")
+            host_s["settle"] = time.perf_counter() - t0
+            ticks = (await mgr_stats())[first]["balancer_ticks"]
+            require(all(isinstance(t[1], int) for t in ticks),
+                    f"rbd: a balancer tick failed: {ticks}")
+            rec["upmaps_committed"] = sum(t[1] for t in ticks)
+            rec["balancer_ticks_to_quiet"] = len(ticks)
+            print(f"[{card}] rbd_path settle: {host_s['settle']:.3f} s, "
+                  f"{rec['upmaps_committed']} upmaps", flush=True)
+
+            # -- 50. rbd create through the CLI -------------------------------
+            await label("create")
+            await timed("rbd_create", cli(
+                "rbd_cli", "-p", "rbd_ec", "create", "vol0", "--size",
+                str(RBD_IMAGE), "--order", str(RBD_ORDER)))
+            ec_io = await cl.open_ioctx("rbd_ec")
+            rep_io = await cl.open_ioctx("rbd")
+            img = await RBD(ec_io).open("vol0")
+            require(img.size_bytes == RBD_IMAGE and img.order == RBD_ORDER,
+                    f"rbd: vol0 is {img.size_bytes} bytes, order "
+                    f"{img.order}")
+
+            # -- 51. rbd bench's parameters through Image ---------------------
+            mirror = bytearray(RBD_IMAGE)
+            for i in range(RBD_IMAGE // obj):
+                mirror[i * obj:(i + 1) * obj] = rng.bytes(obj)
+            await label("seq_write")
+            await timed("seq_write", bounded(RBD_INFLIGHT, [
+                lambda o=o: img.write(o, bytes(mirror[o:o + obj]))
+                for o in range(0, RBD_IMAGE, obj)]))
+            blocks = RBD_IMAGE // RBD_RAND_BYTES
+            jobs = []
+            for _ in range(RBD_RAND_OPS):
+                off = int(rng.integers(0, blocks)) * RBD_RAND_BYTES
+                jobs.append((off, rng.bytes(RBD_RAND_BYTES)))
+            # one object's ops keep their submission order (one PG, one
+            # queue), so the mirror takes them in that order
+            for off, data in jobs:
+                mirror[off:off + RBD_RAND_BYTES] = data
+            await label("rand_write")
+            await timed("rand_write", bounded(RBD_INFLIGHT, [
+                lambda j=j: img.write(j[0], j[1]) for j in jobs]))
+            offs = [int(rng.integers(0, blocks)) * RBD_RAND_BYTES
+                    for _ in range(RBD_RAND_OPS)]
+            await label("rand_read")
+            got = await timed("rand_read", bounded(RBD_INFLIGHT, [
+                lambda o=o: img.read(o, RBD_RAND_BYTES) for o in offs]))
+            for o, data in zip(offs, got):
+                require(data == bytes(mirror[o:o + RBD_RAND_BYTES]),
+                        f"rbd: a 4 KiB read at {o} differs from the mirror")
+            await label("seq_read")
+
+            async def seq_read():
+                outs = await bounded(RBD_INFLIGHT, [
+                    lambda o=o: img.read(o, obj)
+                    for o in range(0, RBD_IMAGE, obj)])
+                for i, data in enumerate(outs):
+                    require(data == bytes(mirror[i * obj:(i + 1) * obj]),
+                            f"rbd: object {i} differs from the mirror")
+            await timed("seq_read", seq_read())
+            del mirror
+
+            # -- 52. snapshots, a clone, export-diff / import-diff ------------
+            await label("snapshots")
+            rbd = RBD(rep_io)
+            await rbd.create("vol1", RBD_SNAP_IMAGE, order=RBD_ORDER)
+            vol1 = await rbd.open("vol1")
+            pre = bytearray(rng.bytes(RBD_SNAP_IMAGE))
+            await bounded(RBD_INFLIGHT, [
+                lambda o=o: vol1.write(o, bytes(pre[o:o + obj]))
+                for o in range(0, RBD_SNAP_IMAGE, obj)])
+            await timed("snap", vol1.snap_create("s1"))
+            head = bytearray(pre)
+            jobs = []
+            for _ in range(RBD_SNAP_WRITES):
+                off = int(rng.integers(0, RBD_SNAP_IMAGE // RBD_RAND_BYTES)) \
+                    * RBD_RAND_BYTES
+                jobs.append((off, rng.bytes(RBD_RAND_BYTES)))
+                head[off:off + RBD_RAND_BYTES] = jobs[-1][1]
+            await timed("snap_writes", bounded(RBD_INFLIGHT, [
+                lambda j=j: vol1.write(*j) for j in jobs]))
+            at_s1 = await rbd.open("vol1", snapshot="s1")
+            require(await at_s1.read(0, RBD_SNAP_IMAGE) == bytes(pre),
+                    "rbd: vol1 at s1 differs from the pre-snap mirror")
+            require(await vol1.read(0, RBD_SNAP_IMAGE) == bytes(head),
+                    "rbd: vol1 differs from its mirror")
+            await vol1.snap_protect("s1")
+            await timed("clone", rbd.clone("vol1", "s1", "vol1c"))
+            kid = await rbd.open("vol1c")
+            off = 5 * obj // 2
+            await kid.write(off, b"\xa5" * RBD_RAND_BYTES)    # copy-up
+            want = bytearray(pre)
+            want[off:off + RBD_RAND_BYTES] = b"\xa5" * RBD_RAND_BYTES
+            require(await kid.read(0, RBD_SNAP_IMAGE) == bytes(want),
+                    "rbd: the clone differs from its mirror")
+            t0 = time.perf_counter()
+            full = await at_s1.export_diff()
+            incr = await vol1.export_diff(from_snap="s1")
+            await rbd.create("vol1r", 1 << 12, order=RBD_ORDER)
+            copy = await rbd.open("vol1r")
+            await copy.import_diff(full)
+            await copy.import_diff(incr)
+            host_s["diff"] = time.perf_counter() - t0
+            rec["diff_bytes"] = {"full": len(full), "incremental": len(incr)}
+            require(await copy.read(0, RBD_SNAP_IMAGE) == bytes(head) and
+                    await (await rbd.open("vol1r", snapshot="s1")).read(
+                        0, RBD_SNAP_IMAGE) == bytes(pre),
+                    "rbd: the imported image differs from vol1")
+            del pre, head, want
+
+            # -- 53. mgr fail and the standby's takeover ----------------------
+            await label("failover")
+            before = await mgr_stats()
+            scrapes = [await scrape(first, before[first]["prometheus_port"])]
+            t0 = time.perf_counter()
+            await cli("ceph_cli", "mgr", "fail")
+            t1 = time.perf_counter()      # the CLI's own start-up before
+
+            async def taken_over():
+                now = await active_mgr()
+                return now not in (None, first)
+            await wait_for(taken_over, "no standby took over")
+            second = await active_mgr()
+            host_s["failover"] = time.perf_counter() - t0
+
+            async def ticked():
+                st = (await mgr_stats())[second]
+                return any(t[2] == "failover"
+                           for t in st["balancer_ticks"]) and \
+                    st["prometheus_port"] is not None
+            await wait_for(ticked, "the new active never ticked")
+            # from the command's answer to the new active's first tick
+            host_s["takeover"] = time.perf_counter() - t1
+            after = await mgr_stats()
+            tick = next(t for t in after[second]["balancer_ticks"]
+                        if t[2] == "failover")
+            rec["new_active_first_tick"] = tick
+            require(tick[1] == 0, f"rbd: the new active's first balancer "
+                                  f"tick committed {tick[1]}")
+            for name in (second, first):
+                port = after[name]["prometheus_port"]
+                if port is not None:
+                    scrapes.append(await scrape(name, port))
+            rec["scrapes"] = scrapes
+            progress, status = [json.loads(out) for out in (
+                await asyncio.gather(cli("ceph_cli", "progress", "json"),
+                                     cli("ceph_cli", "status")))]
+            require("events" in progress and
+                    status["mgrmap"]["active_name"] == second[4:],
+                    f"rbd: progress {progress}, mgrmap "
+                    f"{status.get('mgrmap')}")
+            rec["progress_completed"] = len(progress.get("completed", []))
+
+            # -- 54. what must hold at the end --------------------------------
+            ret, rs, out = await cl.mon_command({"prefix": "osd pool ls"})
+            pools = {p["name"]: p["pg_num"] for p in json.loads(out)}
+            require(pools == {"rbd_ec": RBD_EC_PGS, "rbd": RBD_REP_PGS},
+                    f"rbd: pg_num changed: {pools}")
+            elections1 = await election_epochs()
+            rec["elections_after_start"] = {
+                n: (elections1[n] - elections0[n]) // 2 for n in elections0}
+            rec["markdowns"] = [e for e in events if e[0] == "down"]
+            rec["mgr_moves"] = {n: s["moves"] for n, s in after.items()}
+            rec["mgrs"] = {"first": first, "second": second}
+            rec["epochs"] = {"first": epochs[0] if epochs else None,
+                             "last": cl.monc.osdmap.epoch,
+                             "client_maps": len(epochs)}
+            rec["client_wire"] = dict(cl.monc.msgr.wire)
+            await collect(list(c.children))
+        except BaseException:
+            for n in list(c.children):
+                try:
+                    out = await asyncio.wait_for(
+                        c.daemon_command(n, "smoke stats"), 5)
+                    print(f"[{card}] rbd_path at failure: {n} loop lag "
+                          f"{out.get('loop_lag')} balancer "
+                          f"{out.get('balancer_ticks')} moves "
+                          f"{out.get('moves')}", flush=True)
+                except Exception as e:
+                    print(f"[{card}] rbd_path at failure: {n} "
+                          f"{type(e).__name__}", flush=True)
+            raise
+        finally:
+            await c.stop()
+            child_log.close()
+            rec["children"] = children
+            rec["stats"] = stats
+
+    torch.cuda.empty_cache()
+    rec["card_free_GiB_at_start"] = torch.cuda.mem_get_info()[0] / gib
+    with StepLaunchLog(ckern) as clog:
+        asyncio.run(run(clog))
+        torch.cuda.synchronize()
+        c_client = clog.real.launches
+        clog.drain("rbd client")
+
+    # -- the launches of every process, by kind -----------------------------
+    children, stats = rec.pop("children"), rec.pop("stats")
+    kinds = {k: {"gf_encode": {"launches": 0, "ms": 0.0},
+                 "crush_straw2": {"launches": 0, "ms": 0.0}}
+             for k in ("mgr", "osd", "client", "cli")}
+    kinds["client"]["crush_straw2"] = {
+        "launches": c_client,
+        "ms": sum(e["ms"] for e in clog.by_label.values())}
+    worst = {"gf": 0, "crush": clog.worst}
+    gf_by_step, flushes = {}, {}
+    for name, last in [(n, d) for n, ds in children.items() for d in ds]:
+        kind = name.split(".")[0]
+        if name.startswith(RBD_ON_CPU):
+            # its wrappers ran the plain versions on the CPU (the hook
+            # checked those calls too): no kernel launch
+            require(not last["gf"]["launches"] and
+                    not last["crush"]["launches"],
+                    f"rbd: {name} on the CPU launched a kernel")
+            continue
+        require(last["gf"]["checked"] == last["gf"]["launches"] and
+                last["crush"]["checked"] == last["crush"]["launches"],
+                f"rbd: {name} checked {last['gf']['checked']} of "
+                f"{last['gf']['launches']} gf_encode and "
+                f"{last['crush']['checked']} of "
+                f"{last['crush']['launches']} crush_straw2 launches")
+        k = kinds[kind]
+        k["gf_encode"]["launches"] += last["gf"]["launches"]
+        k["gf_encode"]["ms"] += sum(last["gf"]["ms_by_step"].values())
+        k["crush_straw2"]["launches"] += last["crush"]["launches"]
+        k["crush_straw2"]["ms"] += sum(
+            e["ms"] for e in last["crush"]["by_step"].values())
+        worst["gf"] = max(worst["gf"], last["gf"]["worst"])
+        worst["crush"] = max(worst["crush"], last["crush"]["worst"])
+        for step, n in last["gf"]["by_step"].items():
+            gf_by_step[step] = gf_by_step.get(step, 0) + n
+        for fkind, by_label in last["flushes"].items():
+            for step, rows in by_label.items():
+                flushes.setdefault(fkind, {}).setdefault(step, []).extend(
+                    rows)
+    with open(cli_log) as f:
+        clis = [json.loads(line) for line in f]
+    for one in clis:
+        for key, kern in (("gf", "gf_encode"), ("crush", "crush_straw2")):
+            require(one[key]["checked"] == one[key]["launches"],
+                    f"rbd: {one['tool']} checked {one[key]['checked']} of "
+                    f"{one[key]['launches']} {kern} launches")
+            kinds["cli"][kern]["launches"] += one[key]["launches"]
+            kinds["cli"][kern]["ms"] += one[key]["ms"]
+            worst[key] = max(worst[key], one[key]["worst"])
+    require(worst["gf"] == 0 and worst["crush"] == 0,
+            "rbd: a launch differs from its plain version")
+    require(kinds["osd"]["gf_encode"]["launches"] > 0,
+            f"rbd: launches by kind {kinds}")
+    gf_total = sum(k["gf_encode"]["launches"] for k in kinds.values())
+    crush_total = sum(k["crush_straw2"]["launches"] for k in kinds.values())
+    # -- devices, ladders, device failures ---------------------------------
+    for name, v in stats.items():
+        for s in v:
+            if name.startswith(RBD_ON_CPU):
+                require(all(d.startswith("cpu") for d in s["devices"]),
+                        f"rbd: {name} runs on {s['devices']}")
+            if not name.startswith("osd."):
+                continue
+            require(all(d.startswith("cuda") for d in s["devices"]),
+                    f"rbd: {name} runs on {s['devices']}")
+            for kind, keys in (("ec_agg", PG_RINGS_AGG),
+                               ("ec_read_agg", PG_RINGS_READ_AGG)):
+                rungs = {k: s[kind].get(k, 0) for k in keys}
+                require(not any(rungs.values()),
+                        f"rbd: {name} {kind} rungs {rungs}")
+            fails = (s["recovery"].get("push_device_failures", 0),
+                     s["recovery"].get("rebuild_device_failures", 0),
+                     s["scrub"].get("device_crc_failures", 0))
+            require(not any(fails), f"rbd: {name} device failures {fails}")
+    rec["loop_lag"] = {n: [x["loop_lag"] for x in v]
+                       for n, v in sorted(stats.items())}
+    mgr_lag = [x["loop_lag"] for n, v in stats.items()
+               if n.startswith("mgr.") for x in v]
+    rec["mgr_worst_stall_s"] = max(x["max_s"] for x in mgr_lag)
+    rec["cli"] = clis
+    record = {
+        "card": card,
+        "layout": {"mons": RBD_MONS, "osds": RBD_OSDS, "mgrs": RBD_MGRS,
+                   "on_cpu": [n.rstrip(".") for n in RBD_ON_CPU],
+                   "mgr_modules": list(RBD_MGR_MODULES), "backend": "proc",
+                   "ec_pool": f"k={K} m={M} reed_sol_van host "
+                              f"stripe_unit={OBJ_C} pg_num={RBD_EC_PGS}",
+                   "rep_pool": f"size 3 pg_num {RBD_REP_PGS}",
+                   "image": f"{RBD_IMAGE} bytes order {RBD_ORDER}",
+                   "rand_ops": RBD_RAND_OPS, "inflight": RBD_INFLIGHT},
+        "host_s": host_s,
+        "seq_write_GiBs": RBD_IMAGE / host_s["seq_write"] / gib,
+        "rand_write_iops": RBD_RAND_OPS / host_s["rand_write"],
+        "rand_read_iops": RBD_RAND_OPS / host_s["rand_read"],
+        "seq_read_GiBs": RBD_IMAGE / host_s["seq_read"] / gib,
+        "snap_s": host_s["snap"], "clone_s": host_s["clone"],
+        "diff_s": host_s["diff"],
+        "mgr": {"active_s": host_s["mgr_active"],
+                "settle_s": host_s["settle"],
+                "upmaps": rec["upmaps_committed"],
+                "failover_s": host_s["failover"],
+                "takeover_s": host_s["takeover"],
+                "scrapes": rec.pop("scrapes"),
+                "worst_stall_s": rec["mgr_worst_stall_s"]},
+        "launches_by_kind": kinds,
+        "gf_encode_by_step": gf_by_step,
+        "flushes": flush_summary(flushes),
+        **rec,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print("rbd_path: " + json.dumps(record))
+    # -- the markdowns, elections and mgr failovers: only the phase's -------
+    require(not rec["markdowns"], f"rbd: markdowns {rec['markdowns']}")
+    require(not any(rec["elections_after_start"].values()),
+            f"rbd: elections {rec['elections_after_start']}")
+    moves = [m for m in rec["mgr_moves"].values()]
+    require(sum(m["promote"] for m in moves) == 2 and
+            sum(m["demote"] for m in moves) == 1,
+            f"rbd: mgr promotions and demotions {rec['mgr_moves']}, want "
+            f"the first active and the phase's one failover")
+    return {"gf": (gf_total, worst["gf"]),
+            "crush": (crush_total, worst["crush"])}
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--proc-child"]:
         proc_child(sys.argv[2:])
+    elif sys.argv[1:2] == ["--cli-child"]:
+        cli_child(sys.argv[2:])
     else:
         main()

@@ -338,6 +338,27 @@ def test_sweep_matches_reference(name):
         assert int(bad) == int(rb)
 
 
+def test_smoke_scalar_checks_equal_mapper_ref():
+    """chip_smoke.py's scalar checks (``scalar_map``: the port's
+    ``mapper_ref`` in spawned workers, ``crush_ln`` from a table and
+    ``_h3`` on Python ints) give ``ceph_tpu``'s ``mapper_ref`` rows on
+    every family of maps."""
+    import multiprocessing
+
+    import chip_smoke as cs
+    xs = np.arange(0, 4000, 97)
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        for name, (build, numrep, weights, ca, _) in FAMILIES.items():
+            m, rid = build()
+            pm_ = port(m)
+            cargs = pm_.choose_args.get(ca) if ca is not None else None
+            got = cs.scalar_map(pool, pm_, rid, xs, numrep,
+                                None if weights is None else list(weights),
+                                cargs)
+            assert np.array_equal(got, scalar(m, rid, xs, numrep, weights,
+                                              ca)), name
+
+
 def test_mapper_needs_cuda_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -359,3 +359,49 @@ def test_local_rebuild_failure_raises_on_the_card_only(monkeypatch):
         finally:
             await cl.stop()
     asyncio.run(go())
+
+
+class _StartCluster:
+    """What ``chip_smoke.start_cluster`` uses of a ``ProcCluster``; its
+    start fails when ``leaders`` is set, and its mons report whether
+    each leads (``mon.c`` has no admin socket)."""
+
+    def __init__(self, leaders=None):
+        self.leaders, self.stops = leaders, 0
+        self.children = dict.fromkeys(["mon.a", "mon.b", "mon.c", "osd.0"])
+
+    async def start(self):
+        if self.leaders is not None:
+            raise TimeoutError("0/12 osds up")
+
+    async def stop(self):
+        self.stops += 1
+
+    async def daemon_command(self, name, cmd):
+        if name == "mon.c":
+            raise FileNotFoundError(name)
+        return {"leader": name in self.leaders, "election_epoch": 4,
+                "quorum": [0, 2]}
+
+
+@pytest.mark.parametrize("leaders,restarted", [
+    ({"mon.a", "mon.b"}, True), ({"mon.a"}, False), (None, False)])
+def test_smoke_starts_again_only_after_a_split(leaders, restarted):
+    """chip_smoke.py's cluster phases start a fresh cluster, once, only
+    when the failed start left two mons leading; any other failure
+    raises."""
+    async def timed(what, coro):
+        return await coro
+
+    async def go():
+        c = _StartCluster(leaders)
+        if leaders is not None and not restarted:
+            with pytest.raises(TimeoutError):
+                await cs.start_cluster(c, _StartCluster, timed, "cpu", "t")
+            return
+        got = await cs.start_cluster(c, _StartCluster, timed, "cpu", "t")
+        assert (got is not c) == restarted and c.stops == int(restarted)
+        assert got.split_starts == ([[["mon.a", 4, [0, 2]],
+                                      ["mon.b", 4, [0, 2]]]]
+                                    if restarted else [])
+    asyncio.run(go())

@@ -13,9 +13,11 @@ The proc case shares one spawned cluster, as the reference's does:
      acknowledged write reads back; fault verbs answer on a child's
      admin socket.
 
-The reference's third phase is the Thrasher's storm with a mgr, both of
-which wait for their ports (ROADMAP Queue A item 4); its three mons were
-there for the storm's lead-mon kill, so this case runs one (three mons
+The reference's third phase is the Thrasher's storm with a mgr; the
+Thrasher waits for its port, and the proc mgr children have a case of
+their own here (two mgrs, a SIGKILL of the active, the standby's
+takeover). The reference's three mons were there for the storm's
+lead-mon kill, so the first case runs one (three mons
 started at once can elect two leaders, a reference fault the port keeps:
 ROADMAP Queue C). The reference case flakes on "no pool 't'" right after
 ``pool_create``; here the client waits until its own map holds the
@@ -149,17 +151,58 @@ async def _num_up(c, n: int) -> bool:
 
 
 def test_unported_kinds_raise():
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        Cluster(n_mons=1, n_osds=1, mgr_modules=["prometheus"],
-                backend="proc", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        Cluster(n_mons=1, n_osds=1, mgr_modules=[], device="cpu")
+    """Only the MDS is left unported: asking for it raises, naming it;
+    the mgr kinds are accepted by both backends."""
+    Cluster(n_mons=1, n_osds=1, mgr_modules=["prometheus"],
+            backend="proc", device="cpu")
+    Cluster(n_mons=1, n_osds=1, mgr_modules=[], device="cpu")
 
     async def go():
         c = await Cluster(n_mons=1, n_osds=1, device="cpu").start()
         try:
             with pytest.raises(NotImplementedError, match="MDS"):
                 await c.start_fs()
+            with pytest.raises(NotImplementedError, match="MDS"):
+                await c.add_mds("a")
+        finally:
+            await c.stop()
+    run(go())
+    with pytest.raises(NotImplementedError, match="MDS"):
+        run(Cluster(n_mons=1, n_osds=1, backend="proc",
+                    device="cpu").start_fs())
+
+
+def test_proc_mgr_children_and_failover():
+    """Two proc mgr children (modules resolved by NAME, gid = pid, on
+    the conf's device): the first beacon goes active, its admin socket
+    answers with the mgr's state and the fault verbs, and a SIGKILL of
+    the active fails over to the standby by beacon grace."""
+    async def go():
+        c = Cluster(n_mons=1, n_osds=2, n_mgrs=2,
+                    mgr_modules=["balancer", "prometheus", "progress"],
+                    backend="proc", device="cpu")
+        await c.start()        # returns once a mgr is active
+        try:
+            first = await c.wait_for_mgr_active(timeout=30)
+            name = f"mgr.{first}"
+
+            async def promoted(n):
+                # the child promotes once its own MgrMap names it
+                return (await c.daemon_command(n, "status"))["active"]
+            await _wait(lambda: promoted(name))
+            st = await c.daemon_command(name, "status")
+            assert st["name"] == first
+            assert st["gid"] == c.children[name].pid
+            assert st["modules"] == ["balancer", "prometheus", "progress"]
+            assert await c.daemon_command(name, "fault ls") == {}
+            killed = await c.kill_active_mgr()
+            assert killed == name
+            second = await c.wait_for_mgr_active(not_name=first,
+                                                 timeout=30)
+            assert second != first
+            await _wait(lambda: promoted(f"mgr.{second}"))
+            st2 = await c.daemon_command(f"mgr.{second}", "status")
+            assert st2["gid"] == c.children[f"mgr.{second}"].pid
         finally:
             await c.stop()
     run(go())
