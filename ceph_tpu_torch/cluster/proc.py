@@ -33,8 +33,8 @@ conf document, and each child runs its daemon there: on the card every
 child is a CUDA context of its own, and loads the kernels the first
 process built (``utils/cuda_build.py`` writes them atomically). A mgr
 child (``mgr_modules``, resolved by each module's ``NAME``) runs its
-``Mgr`` there too, gid = its pid. The mds kind is not ported yet and
-raises ``NotImplementedError``.
+``Mgr`` there too, gid = its pid, and an mds child its ``MDSDaemon``
+(``MDSDaemon.create(..., device=)``, gid = its pid).
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ from ceph_tpu_torch.cluster.conf import (
     read_conf_doc,
     write_conf,
 )
-from ceph_tpu_torch.cluster.vstart import DEFAULT_CFG, not_ported
+from ceph_tpu_torch.cluster.vstart import DEFAULT_CFG
 from ceph_tpu_torch.mon.monitor import MonMap
 from ceph_tpu_torch.msg import Keyring
 from ceph_tpu_torch.utils.device import resolve
@@ -317,7 +317,20 @@ class ProcCluster:
     # -- cephfs ------------------------------------------------------------
     async def start_fs(self, pool: str = "cephfs", n_mds: int = 2,
                        pg_num: int = 8, timeout: float = 90.0) -> None:
-        raise not_ported("the MDS (start_fs)")
+        await self.client.pool_create(pool, pg_num=pg_num)
+        await self.wait_for_clean(timeout=120)
+        self.fs_pool = pool
+        for name in "abcdefgh"[:n_mds]:
+            await self._spawn(f"mds.{name}", ["--pool", pool])
+        deadline = asyncio.get_event_loop().time() + timeout
+        while True:
+            st = await self.client.status()
+            fsmap = st.get("fsmap") or {}
+            if fsmap.get("active"):
+                return
+            if asyncio.get_event_loop().time() > deadline:
+                raise TimeoutError(f"no active mds ({fsmap})")
+            await asyncio.sleep(0.2)
 
     # -- waiting (all over the wire: the parent has no daemon objects) -----
     async def wait_for_clean(self, timeout: float = 60.0) -> None:
@@ -594,7 +607,25 @@ async def _child_main(args) -> None:
         await stop_ev.wait()
         await mgr.stop()
     elif args.daemon == "mds":
-        raise not_ported("the MDS daemon")
+        from ceph_tpu_torch.cephfs.mds import MDSDaemon
+        from ceph_tpu_torch.utils.admin_socket import AdminSocket
+        mds = await MDSDaemon.create(monmap, args.pool, name=args.id,
+                                     keyring=keyring, config=cfg,
+                                     gid=os.getpid(), device=device)
+        mds.mirror_global_config = True
+        await mds.start_ha()
+        asok = AdminSocket(
+            f"{cfg.get('admin_socket_dir', data_dir)}/"
+            f"mds.{args.id}.asok")
+        asok.register("status",
+                      lambda: {"name": mds.name, "gid": mds.gid,
+                               "state": mds.state},
+                      "mds identity + fsmap state")
+        _register_fault_verbs(asok, [mds.msgr, mds.monc.msgr], cfg)
+        await asok.start()
+        await stop_ev.wait()
+        await asok.stop()
+        await mds.stop()
     else:
         raise SystemExit(f"unknown daemon type {args.daemon!r}")
 

@@ -8,8 +8,9 @@ The port's copy of ``ceph_tpu/cluster/vstart.py``. A ``Cluster`` runs on
 ``device`` (CUDA unless ``"cpu"``; it raises without a card) and hands it
 to every ``Monitor``, ``OSD``, ``Mgr`` and ``Rados`` it starts; the CLI
 takes ``--device``. ``mgr_modules`` (and ``--mgr-num`` with ``--serve``)
-starts ``n_mgrs`` mgrs, the first active. The MDS is not ported yet:
-``start_fs``, ``add_mds`` and ``--mds-num`` raise ``NotImplementedError``.
+starts ``n_mgrs`` mgrs, the first active. ``start_fs``/``add_mds`` (and
+``--mds-num`` with ``--serve``) boot mon-coordinated MDS daemons on the
+same device.
 """
 
 from __future__ import annotations
@@ -38,12 +39,6 @@ DEFAULT_CFG = {
     "mgr_stats_period": 0.25, "mgr_stats_stale_s": 5.0,
     "mgr_stats_schema_refresh": 10, "mgr_progress_interval": 0.25,
 }
-
-
-def not_ported(what: str) -> NotImplementedError:
-    """The error for a daemon kind whose port has not landed (today only
-    the MDS)."""
-    return NotImplementedError(f"{what} is not ported to ceph_tpu_torch yet")
 
 
 class Cluster:
@@ -198,8 +193,19 @@ class Cluster:
         pre-subsystem behavior (a dead MDS is a dead filesystem).
         ``max_mds > 1`` opens that many active ranks (multi-active;
         daemons beyond ``max_mds`` stay standbys) and waits until all
-        of them reach active. The MDS is not ported yet."""
-        raise not_ported("the MDS (start_fs)")
+        of them reach active."""
+        await self.client.pool_create(pool, pg_num=pg_num)
+        await self.wait_for_clean(timeout=120)
+        self.fs_pool = pool
+        names = "abcdefgh"
+        for i in range(n_mds):
+            await self.add_mds(names[i])
+        if max_mds > 1:
+            await self.set_max_mds(max_mds)
+            await self.wait_for_actives(max_mds, timeout=timeout)
+        else:
+            await self.wait_for_mds_active(timeout=timeout)
+        return self.mdss
 
     async def set_max_mds(self, n: int) -> None:
         ret, rs, _ = await self.client.mon_command(
@@ -252,7 +258,17 @@ class Cluster:
             await asyncio.sleep(0.05)
 
     async def add_mds(self, name: str):
-        raise not_ported("the MDS (add_mds)")
+        from ceph_tpu_torch.cephfs.mds import MDSDaemon
+        assert self.fs_pool is not None, "start_fs first"
+        mds = await MDSDaemon.create(self.monmap, self.fs_pool,
+                                     name=name, keyring=self.keyring,
+                                     config=self.cfg, device=self.device)
+        if self.faults is not None:
+            mds.msgr.faults = self.faults
+            mds.monc.msgr.faults = self.faults
+        await mds.start_ha()
+        self.mdss.append(mds)
+        return mds
 
     def mds_active_name(self, rank: int = 0) -> str | None:
         """``rank``'s ACTIVE holder per the lead mon's FSMap."""
@@ -604,8 +620,6 @@ async def _serve(args) -> None:
         # daemon admin sockets land next to the cluster one, so
         # `ceph_cli daemon <dir>/osd.N.asok ops` works out of the box
         cfg["admin_socket_dir"] = os.path.dirname(args.asok) or "."
-    if args.mds_num > 0:
-        raise not_ported("the MDS (--mds-num)")
     mgr_modules = None
     if args.mgr_num > 0:
         from ceph_tpu_torch.mgr.modules import (
@@ -622,6 +636,8 @@ async def _serve(args) -> None:
     if args.pool:
         await c.client.pool_create(args.pool, pg_num=args.pg_num)
         await c.wait_for_clean(timeout=300)
+        if args.mds_num > 0:
+            await c.start_fs(pool=args.pool, n_mds=args.mds_num)
     write_conf(args.conf, c.monmap, c.keyring)
     if args.asok and args.backend == "inproc":
         await c.start_admin_socket(args.asok)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import os
 import struct
+import threading
 import zlib
 from typing import Iterator
 
@@ -117,6 +118,16 @@ class WALDB(MemDB):
     being applied; open() replays the snapshot + WAL, discarding a torn
     tail (the crash-consistency contract of a RocksDB WAL, ref:
     src/kv/RocksDBStore.cc submit_transaction_sync + BlueFS replay).
+
+    A WAL past ``compact_threshold`` is compacted in a background thread,
+    as RocksDB flushes and compacts off the write path: the thread writes
+    the table as it stood at the trigger into a new snapshot, then copies
+    the WAL's later records into a fresh WAL, which a later batch (or
+    ``compact``/``close``) swaps in. Every file state on the way replays
+    to the same table, because replaying records that a snapshot already
+    holds leaves it unchanged (each op sets, removes or drops a prefix:
+    the last op on a key decides it). The files are those that a
+    synchronous compaction at the same point writes.
     """
 
     SNAPSHOT = "snapshot.kv"
@@ -130,6 +141,9 @@ class WALDB(MemDB):
         self._replayed_bytes = 0
         self._load()
         self._wal = open(os.path.join(path, self.WAL), "ab")
+        self._durable = self._wal.tell()    # WAL bytes written and synced
+        self._bg: threading.Thread | None = None   # a running compaction
+        self._bg_out: tuple = ()            # its (copied up to, error)
 
     # -- framing -----------------------------------------------------------
     @staticmethod
@@ -172,30 +186,73 @@ class WALDB(MemDB):
                 f.truncate(clean)
 
     def _append(self, payload: bytes) -> None:
-        self._wal.write(_HDR.pack(len(payload)) + payload +
-                        _HDR.pack(zlib.crc32(payload)))
+        # three writes, not one concatenation: a record can hold a whole
+        # object, and the bytes on disk are the same
+        self._wal.write(_HDR.pack(len(payload)))
+        self._wal.write(payload)
+        self._wal.write(_HDR.pack(zlib.crc32(payload)))
         self._wal.flush()
         os.fsync(self._wal.fileno())
+        self._durable = self._wal.tell()
 
     # -- api ---------------------------------------------------------------
     def submit_transaction(self, t: KVTransaction) -> None:
         self._append(t.encode())
         self._apply(t)
-        if self._wal.tell() > self.compact_threshold:
-            self.compact()
+        if self._bg is not None and not self._bg.is_alive():
+            self._finish_compaction()
+        if self._bg is None and self._wal.tell() > self.compact_threshold:
+            self._bg_out = ()
+            self._bg = threading.Thread(
+                target=self._compact_job,
+                args=(self._frozen(), self._durable), daemon=True)
+            self._bg.start()
 
     def compact(self) -> None:
         """Write the whole table as one snapshot batch; reset the WAL
         (ref: RocksDB memtable flush / BlueStore DB compaction)."""
-        t = KVTransaction()
-        for prefix, space in self._data.items():
-            for k, v in space.items():
-                t.set(prefix, k, v)
+        self._wait_compaction()
+        self._write_snapshot(self._frozen())
+        self._wal.close()
+        self._wal = open(os.path.join(self.path, self.WAL), "wb")
+        self._durable = 0
+
+    # -- compaction ----------------------------------------------------------
+    def _frozen(self) -> list:
+        """The table as it stands, in snapshot order (values are bytes,
+        never changed in place, so the lists share them)."""
+        return [(prefix, list(space.items()))
+                for prefix, space in self._data.items()]
+
+    def _fsync_dir(self) -> None:
+        dfd = os.open(self.path, os.O_RDONLY)
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
+
+    def _write_snapshot(self, frozen: list) -> None:
+        """The snapshot file: one record of a KVTransaction that sets every
+        key, written piece by piece (the bytes of ``t.encode()``'s record,
+        without building it in memory), synced and renamed into place."""
         tmp = os.path.join(self.path, self.SNAPSHOT + ".tmp")
-        payload = t.encode()
         with open(tmp, "wb") as f:
-            f.write(_HDR.pack(len(payload)) + payload +
-                    _HDR.pack(zlib.crc32(payload)))
+            f.write(_HDR.pack(0))           # the length, filled in below
+            head = Encoder().u32(sum(len(kvs) for _, kvs in frozen))
+            head = head.tobytes()
+            f.write(head)
+            size, crc = len(head), zlib.crc32(head)
+            for prefix, kvs in frozen:
+                for key, value in kvs:
+                    op = Encoder().string("set").string(prefix).string(key)
+                    op = op.bool(True).u32(len(value)).tobytes()
+                    f.write(op)
+                    f.write(value)
+                    size += len(op) + len(value)
+                    crc = zlib.crc32(value, zlib.crc32(op, crc))
+            f.write(_HDR.pack(crc))
+            f.seek(0)
+            f.write(_HDR.pack(size))
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, os.path.join(self.path, self.SNAPSHOT))
@@ -203,13 +260,62 @@ class WALDB(MemDB):
         # power loss an un-fsynced rename can be lost while the
         # truncation survives, dropping every transaction since the
         # previous snapshot. fsync the directory entry first.
-        dfd = os.open(self.path, os.O_RDONLY)
+        self._fsync_dir()
+
+    def _compact_job(self, frozen: list, covered: int) -> None:
+        """In the background: the snapshot of ``frozen`` (the table after
+        the WAL's first ``covered`` bytes), then the WAL's records after
+        ``covered`` copied into ``wal.kv.tmp`` while batches go on being
+        appended; ``_finish_compaction`` copies the rest and swaps."""
         try:
-            os.fsync(dfd)
-        finally:
-            os.close(dfd)
+            self._write_snapshot(frozen)
+            wal = os.path.join(self.path, self.WAL)
+            pos = covered
+            with open(wal, "rb") as src, open(wal + ".tmp", "wb") as dst:
+                for _ in range(4):          # catch up with the appends
+                    end = self._durable
+                    if end - pos <= 1 << 20:
+                        break
+                    pos = _copy(src, dst, pos, end)
+                dst.flush()
+                os.fsync(dst.fileno())
+            self._bg_out = (pos, None)
+        except BaseException as e:          # raised on the caller's side
+            self._bg_out = (covered, e)
+
+    def _finish_compaction(self) -> None:
+        """On the caller's side once the job has ended: the WAL's newest
+        records after it, then the fresh WAL in place of the old."""
+        self._bg = None
+        pos, err = self._bg_out
+        if err is not None:
+            raise err
+        wal = os.path.join(self.path, self.WAL)
+        with open(wal, "rb") as src, open(wal + ".tmp", "ab") as dst:
+            _copy(src, dst, pos, self._durable)
+            dst.flush()
+            os.fsync(dst.fileno())
         self._wal.close()
-        self._wal = open(os.path.join(self.path, self.WAL), "wb")
+        os.replace(wal + ".tmp", wal)
+        self._fsync_dir()
+        self._wal = open(wal, "ab")
+        self._durable = self._wal.tell()
+
+    def _wait_compaction(self) -> None:
+        if self._bg is not None:
+            self._bg.join()
+            self._finish_compaction()
 
     def close(self) -> None:
+        self._wait_compaction()
         self._wal.close()
+
+
+def _copy(src, dst, start: int, end: int, chunk: int = 8 << 20) -> int:
+    """Bytes ``[start, end)`` of the file ``src`` appended to ``dst``."""
+    src.seek(start)
+    while start < end:
+        buf = src.read(min(chunk, end - start))
+        dst.write(buf)
+        start += len(buf)
+    return end

@@ -422,10 +422,10 @@ class WALStore(MemStore):
     @staticmethod
     def _encode_obj(o: _Obj) -> bytes:
         e = Encoder()
-        e.blob(bytes(o.data))
+        e.blob(o.data)                  # no copies of a large object first
         e.map(o.attrs, lambda e, k: e.string(k), lambda e, v: e.blob(v))
         e.map(o.omap, lambda e, k: e.string(k), lambda e, v: e.blob(v))
-        e.u32(zlib.crc32(bytes(o.data)))
+        e.u32(zlib.crc32(o.data))
         return e.tobytes()
 
     @staticmethod
@@ -435,7 +435,7 @@ class WALStore(MemStore):
         o.data = bytearray(d.blob())
         o.attrs = d.map(lambda d: d.string(), lambda d: d.blob())
         o.omap = d.map(lambda d: d.string(), lambda d: d.blob())
-        ok = d.u32() == zlib.crc32(bytes(o.data))
+        ok = d.u32() == zlib.crc32(o.data)
         return o, ok
 
     def _load(self) -> None:

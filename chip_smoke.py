@@ -280,6 +280,42 @@ that process's launches against the plain versions:
    ms by process kind (mgr, OSD, client, CLI), and the aggregators'
    distinct PGs per flush.
 
+Then the S3 gateway and CephFS (``fs_rgw_path``, steps 55-61 of
+``rbd_path_phase``, on its cluster after the mgr failover; its launches
+are those of steps labelled ``fs_rgw_*`` and of the MDS processes):
+Ceph's documented CephFS setup ("Create a Ceph File System": an active
+MDS and a standby, two MDS processes on the card) on a replicated size-3
+pool ``cephfs`` of 128 PGs (what the autoscaler recommends for three
+pools, so it splits nothing), and S3 through an ``RGWGateway`` in this
+process over the client's ``Rados`` on the k=8 m=3 pool ("Ceph Object
+Gateway"), SigV4 users on:
+
+55. ``ProcCluster.start_fs``; the MDSs' start-up seconds and devices
+   (the card); the balancer quiet again after the new pool's moves.
+56. 64 PUTs of 4 MiB (``rgw_obj_stripe_size``) at 16 in flight, each
+   ETag equal to the md5; the bucket listing; 64 HEADs and 64 GETs at 16
+   in flight, every byte equal to a host mirror.
+57. A 64 MiB multipart upload in 8 MiB parts, its ETag md5-of-md5s-8
+   and its bytes; a presigned GET; a ``public-read`` object's anonymous
+   GET (a private one's is refused).
+58. Two ``CephFSClient``s on the card (keys in the conf), IO500's
+   mdtest-easy at 512 empty files per client in a directory of its own:
+   creates, with ``ceph_cli mds fail <active>`` started with them (each
+   client's last 64 creates wait for it), so the standby takes rank 0
+   and the clients reconnect and replay; every acknowledged file listed
+   once; stats; unlinks.
+59. ior-easy: a file per client, 64 MiB in sequential 4 MiB transfers,
+   written and read back equal to a host mirror.
+60. ``mkdir /ior/0/.snap/s1``, a rewrite of one transfer: the snapshot
+   reads the old bytes, the head the new.
+61. An OSD hard-stopped; 16 degraded GETs (15 objects and the multipart
+   one), bytes and ETags exact. No markdown but that OSD's, no election,
+   no mgr move, the MDSs' takeovers only the first active's and the
+   failover's; the pools' ``pg_num`` unchanged. One ``fs_rgw_path``
+   JSON line gives the S3 and CephFS rates, the failover and reconnect
+   seconds, the MDSs' start-up and worst loop stall, and both kernels'
+   launches and CUDA-event ms by process kind and step.
+
 Last: one JSON line listing both kernels, then the card from
 nvidia-smi, then the last line ``{"ok": true, "device": {...}}``.
 
@@ -533,16 +569,19 @@ def main() -> None:
         cluster = osd_cluster_path_phase(card, pool)
         mark("osd_cluster_path")
     rbd = rbd_path_phase(card)
-    mark("rbd_path")
+    fs = rbd.pop("fs_rgw")
+    mark("fs_rgw_path")
     crush["launches_by_path"] = {"crush_main": crush["launches"],
                                  "placement_epochs": placement_launches,
                                  "mon_path": mon_launches,
                                  "osd_cluster_path": cluster["crush"][0],
-                                 "rbd_path": rbd["crush"][0]}
+                                 "rbd_path": rbd["crush"][0],
+                                 "fs_rgw_path": fs["crush"][0]}
     crush["launches"] += placement_launches + mon_launches + \
-        cluster["crush"][0] + rbd["crush"][0]
+        cluster["crush"][0] + rbd["crush"][0] + fs["crush"][0]
     crush["max_abs_err"] = max(crush["max_abs_err"], mon_worst,
-                               cluster["crush"][1], rbd["crush"][1])
+                               cluster["crush"][1], rbd["crush"][1],
+                               fs["crush"][1])
     by_path = {"encode_decode": launches}
     plane_launches, err_plane = ec_plane_phases(ec, enc_bm, dec_bm, card,
                                                 spec)
@@ -556,6 +595,7 @@ def main() -> None:
     mark("ec_pg_path")
     by_path["osd_cluster_path"] = cluster["gf"][0]
     by_path["rbd_path"] = rbd["gf"][0]
+    by_path["fs_rgw_path"] = fs["gf"][0]
     print(f"gf_encode launches by path: {json.dumps(by_path)}")
 
     # -- result ----------------------------------------------------------------
@@ -567,7 +607,7 @@ def main() -> None:
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
         "max_abs_err": max(err_enc, err_dec, err_plane, err_obj, err_pg,
-                           cluster["gf"][1], rbd["gf"][1]),
+                           cluster["gf"][1], rbd["gf"][1], fs["gf"][1]),
         "ms": enc_ms,
         "plain_ms": plain_enc_ms,
         "bound_ms": enc_bound_s * 1e3,
@@ -3980,6 +4020,45 @@ def proc_child(argv: list) -> None:
                     "loop_lag": dict(lag), "fsync": dict(fsyncs)}
         register(mgr.asok, "smoke stats", stats)
     mgr_daemon.Mgr.start = mgr_start
+    # the MDS: seconds from the spawn to its first beacon (``ready_s``),
+    # its ``create`` (connect, warm-up op) and its state; the proc backend
+    # builds its admin socket after ``start_ha``, so the verbs go on there
+    from ceph_tpu_torch.cephfs import mds as mds_mod
+    from ceph_tpu_torch.utils import admin_socket as asok_mod
+    mds_seen = {}
+    real_mds_create = mds_mod.MDSDaemon.create.__func__
+
+    async def mds_create(cls, *a, **kw):
+        t0 = time.time()
+        out = await real_mds_create(cls, *a, **kw)
+        mds_seen["create_s"] = time.time() - t0
+        return out
+    mds_mod.MDSDaemon.create = classmethod(mds_create)
+    real_start_ha = mds_mod.MDSDaemon.start_ha
+
+    async def start_ha(mds, *a, **kw):
+        out = await real_start_ha(mds, *a, **kw)
+        mds_seen.update(mds=mds, ready_s=time.time() - t_start)
+        return out
+    mds_mod.MDSDaemon.start_ha = start_ha
+    real_asok_start = asok_mod.AdminSocket.start
+
+    async def asok_start(asok):
+        mds = mds_seen.get("mds")
+        if mds is not None and \
+                os.path.basename(asok.path) == f"mds.{mds.name}.asok":
+            base = common(asok, mds_seen["ready_s"])
+            register(asok, "smoke stats", lambda: {
+                **base, "name": mds.name, "gid": mds.gid,
+                "state": mds.state, "rank": mds.rank,
+                "create_s": mds_seen["create_s"],
+                "devices": sorted({str(mds.device), str(mds.monc.device)}),
+                "perf": mds_mod.MDS_PERF.dump(),
+                "wire": [mds.msgr.wire, mds.monc.msgr.wire],
+                "first_launches": devmon().functions,
+                "loop_lag": dict(lag), "fsync": dict(fsyncs)})
+        await real_asok_start(asok)
+    asok_mod.AdminSocket.start = asok_start
     daemon.OSD.boot, Monitor.start = boot, start
     with GfLaunchLog(gkern) as glog, StepLaunchLog(ckern) as clog, \
             FlushLog() as flog:
@@ -3998,17 +4077,24 @@ async def bounded(inflight: int, fns) -> list:
     return await asyncio.gather(*[one(f) for f in fns])
 
 
-def smoke_cluster(child_log, here: str, on_cpu=("mon.",)):
+def smoke_cluster(child_log, here: str, on_cpu=("mon.",), clients=()):
     """The port's ``ProcCluster`` with each child started through
     ``chip_smoke.py --proc-child`` (the hooks) and its output kept in
     ``child_log``. The children whose names start with one of ``on_cpu``
     run on the CPU, as on hosts of their own without the card (the conf's
-    copy with device=cpu); the rest on the conf's device."""
+    copy with device=cpu); the rest on the conf's device. ``clients`` are
+    entity names whose keys the conf carries (provisioned as vstart
+    provisions ``client.admin``)."""
     import os
 
     from ceph_tpu_torch.cluster.proc import ProcCluster
 
     class SmokeCluster(ProcCluster):
+        async def start(self):
+            for name in clients:
+                self.keyring.add(name)
+            return await super().start()
+
         async def _exec(self, child):
             child.argv = [sys.executable, os.path.abspath(CHILD_SCRIPT),
                           "--proc-child"] + child.argv[3:]
@@ -4670,6 +4756,28 @@ RBD_CONFIG = {"osd_ec_resident_bytes": OBJ_RESIDENT_BYTES,
               "mgr_pg_autoscaler_interval": 60.0}
 RBD_LOG = "build/rbd_path.log"              # the daemons' and CLIs' output
 
+# -- the S3 gateway and CephFS (fs_rgw_path) ----------------------------------
+# On rbd_path's cluster, after its mgr failover: Ceph's documented CephFS
+# setup ("Create a Ceph File System": one active MDS and a standby) on a
+# replicated pool of its own, and S3 through the object gateway ("Ceph
+# Object Gateway") on the k=8 m=3 pool. The reference keeps a file system's
+# metadata and data in one pool, and a gateway's index and payloads in one.
+FS_POOL = "cephfs"
+FS_PGS = 128          # PGAutoscalerModule.recommend for 12 OSDs, 3 pools, size 3
+FS_MDS = 2            # one active, one standby
+FS_CLIENTS = ("client.fs0", "client.fs1")   # keys provisioned in the conf
+S3_USERS = {"SMOKEACCESSKEY": "smoke-secret-key"}
+S3_HOST = "127.0.0.1"
+S3_BUCKET = "smoke"
+S3_OBJS, S3_OBJ = 64, 4 << 20        # RGW's rgw_obj_stripe_size
+S3_INFLIGHT = 16                     # rados bench -t 16
+S3_MP, S3_PART = 64 << 20, 8 << 20   # S3's smallest part is 5 MiB
+S3_DEGRADED = 16                     # GETs after an OSD is hard-stopped
+S3_KILL = 4                          # the OSD hard-stopped
+MDT_FILES = 512                      # mdtest-easy files per client
+MDT_AFTER_FAIL = 64                  # each client's creates after `mds fail`
+IOR_SIZE, IOR_XFER = 64 << 20, 4 << 20   # ior-easy per client, transfer
+
 
 def cli_child(argv: list) -> None:
     """One of the port's CLIs (``ceph_tpu_torch.bench.<argv[0]>``, the
@@ -4691,6 +4799,7 @@ def cli_child(argv: list) -> None:
     with open(os.environ["CHIP_SMOKE_CLI_LOG"], "a") as f:
         f.write(json.dumps({
             "tool": argv[0], "rc": rc,
+            "label": os.environ.get("CHIP_SMOKE_CLI_LABEL"),
             "gf": {"launches": glog.real.launches, "checked": glog.checked,
                    "worst": glog.worst, "ms": sum(glog.ms.values())},
             "crush": {"launches": clog.real.launches,
@@ -4728,7 +4837,7 @@ def rbd_path_phase(card: str) -> dict:
     cli_log = os.path.join(here, RBD_LOG + ".cli")
     if os.path.exists(cli_log):
         os.remove(cli_log)
-    SmokeCluster = smoke_cluster(child_log, here, RBD_ON_CPU)
+    SmokeCluster = smoke_cluster(child_log, here, RBD_ON_CPU, FS_CLIENTS)
 
     class StubMgr:
         config = dict(RBD_CONFIG)        # the cluster's, as the mgr's
@@ -4738,6 +4847,12 @@ def rbd_path_phase(card: str) -> dict:
     require(rec["autoscaler"] == {"ec": RBD_EC_PGS,
                                   "replicated": RBD_REP_PGS},
             f"rbd: the autoscaler recommends {rec['autoscaler']}")
+    # with fs_rgw_path's pool beside them: the same targets, so no split
+    three = {"ec": auto.recommend(RBD_OSDS, 3, K + M),
+             "replicated": auto.recommend(RBD_OSDS, 3, 3)}
+    require(three == {"ec": RBD_EC_PGS, "replicated": FS_PGS} and
+            FS_PGS == RBD_REP_PGS,
+            f"fs_rgw: the autoscaler recommends {three} for three pools")
 
     async def timed(what, coro):
         t0 = time.perf_counter()
@@ -4763,6 +4878,7 @@ def rbd_path_phase(card: str) -> dict:
                 device="cuda")
         c = make()
         children, stats = {}, {}
+        dead = set()                    # hard-stopped children
 
         async def ask(name, cmd):
             out = await c.daemon_command(name, cmd)
@@ -4778,7 +4894,8 @@ def rbd_path_phase(card: str) -> dict:
         async def cli(tool, *words):
             """A CLI run as a user runs it, through ``--cli-child``;
             returns its standard output."""
-            env = dict(os.environ, CHIP_SMOKE_CLI_LOG=cli_log)
+            env = dict(os.environ, CHIP_SMOKE_CLI_LOG=cli_log,
+                       CHIP_SMOKE_CLI_LABEL=str(clog.label))
             env["PYTHONPATH"] = os.pathsep.join(
                 p for p in (here, env.get("PYTHONPATH")) if p)
             t0 = time.perf_counter()
@@ -4906,15 +5023,18 @@ def rbd_path_phase(card: str) -> dict:
             # the balancer quiet (no change in its last ticks after the
             # first clean) on a clean cluster: its upmaps move PGs before
             # any image data exists
-            async def quiet():
-                st = (await mgr_stats())[first]
-                done = [t for t in st["balancer_ticks"] if t[0] >= clean_at]
-                st_cl = await cl.status()
-                pgmap = st_cl["pgmap"]
-                return len(done) >= RBD_QUIET_TICKS and \
-                    all(t[1] == 0 for t in done[-RBD_QUIET_TICKS:]) and \
-                    pgmap["states"].get("clean") == pgmap["num_pgs"]
-            await wait_for(quiet, "the balancer never went quiet")
+            def quiet_of(mgr, at):
+                async def quiet():
+                    st = (await mgr_stats())[mgr]
+                    done = [t for t in st["balancer_ticks"] if t[0] >= at]
+                    st_cl = await cl.status()
+                    pgmap = st_cl["pgmap"]
+                    return len(done) >= RBD_QUIET_TICKS and \
+                        all(t[1] == 0 for t in done[-RBD_QUIET_TICKS:]) \
+                        and pgmap["states"].get("clean") == pgmap["num_pgs"]
+                return quiet
+            await wait_for(quiet_of(first, clean_at),
+                           "the balancer never went quiet")
             host_s["settle"] = time.perf_counter() - t0
             ticks = (await mgr_stats())[first]["balancer_ticks"]
             require(all(isinstance(t[1], int) for t in ticks),
@@ -5082,7 +5202,31 @@ def rbd_path_phase(card: str) -> dict:
                              "last": cl.monc.osdmap.epoch,
                              "client_maps": len(epochs)}
             rec["client_wire"] = dict(cl.monc.msgr.wire)
-            await collect(list(c.children))
+            mark("rbd_path")
+
+            # -- 55-61. the S3 gateway and CephFS (fs_rgw_path) ---------------
+            rec["fs_rgw"] = await fs_rgw_steps({
+                "c": c, "cl": cl, "card": card,
+                "rng": np.random.default_rng(SEED + 55), "label": label,
+                "ask": ask, "cli": cli, "wait_for": wait_for,
+                "collect": collect, "dead": dead,
+                "quiet": lambda at: quiet_of(second, at)})
+            fs = rec["fs_rgw"]
+            elections2 = await election_epochs()
+            fs["elections"] = {n: (elections2[n] - elections1[n]) // 2
+                               for n in elections1}
+            fs["markdowns"] = [e for e in events if e[0] == "down"][
+                len(rec["markdowns"]):]
+            fs["mgr_moves"] = {n: s["moves"]
+                               for n, s in (await mgr_stats()).items()}
+            fs["epochs"] = {"last": cl.monc.osdmap.epoch,
+                            "client_maps": len(epochs)}
+            ret, rs, out = await cl.mon_command({"prefix": "osd pool ls"})
+            pools = {p["name"]: p["pg_num"] for p in json.loads(out)}
+            require(pools == {"rbd_ec": RBD_EC_PGS, "rbd": RBD_REP_PGS,
+                              FS_POOL: FS_PGS},
+                    f"fs_rgw: pg_num changed: {pools}")
+            await collect([n for n in c.children if n not in dead])
         except BaseException:
             for n in list(c.children):
                 try:
@@ -5110,14 +5254,24 @@ def rbd_path_phase(card: str) -> dict:
         c_client = clog.real.launches
         clog.drain("rbd client")
 
-    # -- the launches of every process, by kind -----------------------------
+    # -- the launches of every process, by path and kind --------------------
+    # fs_rgw_path's launches are those of its steps (labels fs_rgw_*) and
+    # every launch of an MDS process, which lives only in that phase
+    def path_of(name, step):
+        return "fs_rgw_path" if name.startswith("mds.") or \
+            str(step).startswith("fs_rgw") else "rbd_path"
     children, stats = rec.pop("children"), rec.pop("stats")
-    kinds = {k: {"gf_encode": {"launches": 0, "ms": 0.0},
-                 "crush_straw2": {"launches": 0, "ms": 0.0}}
-             for k in ("mgr", "osd", "client", "cli")}
-    kinds["client"]["crush_straw2"] = {
-        "launches": c_client,
-        "ms": sum(e["ms"] for e in clog.by_label.values())}
+    kinds = {path: {k: {"gf_encode": {"launches": 0, "ms": 0.0},
+                        "crush_straw2": {"launches": 0, "ms": 0.0}}
+                    for k in ("mgr", "osd", "mds", "client", "cli")}
+             for path in ("rbd_path", "fs_rgw_path")}
+    for step, e in clog.by_label.items():
+        k = kinds[path_of("client", step)]["client"]["crush_straw2"]
+        k["launches"] += e["launches"]
+        k["ms"] += e["ms"]
+    require(sum(e["launches"] for e in clog.by_label.values()) == c_client,
+            f"rbd: the client's launches by step {clog.by_label} do not add "
+            f"up to {c_client}")
     worst = {"gf": 0, "crush": clog.worst}
     gf_by_step, flushes = {}, {}
     for name, last in [(n, d) for n, ds in children.items() for d in ds]:
@@ -5135,16 +5289,17 @@ def rbd_path_phase(card: str) -> dict:
                 f"{last['gf']['launches']} gf_encode and "
                 f"{last['crush']['checked']} of "
                 f"{last['crush']['launches']} crush_straw2 launches")
-        k = kinds[kind]
-        k["gf_encode"]["launches"] += last["gf"]["launches"]
-        k["gf_encode"]["ms"] += sum(last["gf"]["ms_by_step"].values())
-        k["crush_straw2"]["launches"] += last["crush"]["launches"]
-        k["crush_straw2"]["ms"] += sum(
-            e["ms"] for e in last["crush"]["by_step"].values())
+        for step, n in last["gf"]["by_step"].items():
+            k = kinds[path_of(name, step)][kind]["gf_encode"]
+            k["launches"] += n
+            k["ms"] += last["gf"]["ms_by_step"][step]
+            gf_by_step[step] = gf_by_step.get(step, 0) + n
+        for step, e in last["crush"]["by_step"].items():
+            k = kinds[path_of(name, step)][kind]["crush_straw2"]
+            k["launches"] += e["launches"]
+            k["ms"] += e["ms"]
         worst["gf"] = max(worst["gf"], last["gf"]["worst"])
         worst["crush"] = max(worst["crush"], last["crush"]["worst"])
-        for step, n in last["gf"]["by_step"].items():
-            gf_by_step[step] = gf_by_step.get(step, 0) + n
         for fkind, by_label in last["flushes"].items():
             for step, rows in by_label.items():
                 flushes.setdefault(fkind, {}).setdefault(step, []).extend(
@@ -5156,15 +5311,20 @@ def rbd_path_phase(card: str) -> dict:
             require(one[key]["checked"] == one[key]["launches"],
                     f"rbd: {one['tool']} checked {one[key]['checked']} of "
                     f"{one[key]['launches']} {kern} launches")
-            kinds["cli"][kern]["launches"] += one[key]["launches"]
-            kinds["cli"][kern]["ms"] += one[key]["ms"]
+            k = kinds[path_of("cli", one["label"])]["cli"][kern]
+            k["launches"] += one[key]["launches"]
+            k["ms"] += one[key]["ms"]
             worst[key] = max(worst[key], one[key]["worst"])
     require(worst["gf"] == 0 and worst["crush"] == 0,
             "rbd: a launch differs from its plain version")
-    require(kinds["osd"]["gf_encode"]["launches"] > 0,
-            f"rbd: launches by kind {kinds}")
-    gf_total = sum(k["gf_encode"]["launches"] for k in kinds.values())
-    crush_total = sum(k["crush_straw2"]["launches"] for k in kinds.values())
+    totals = {path: {kern: sum(k[kern]["launches"] for k in by.values())
+                     for kern in ("gf_encode", "crush_straw2")}
+              for path, by in kinds.items()}
+    for path, tot in totals.items():
+        require(tot["gf_encode"] > 0 and tot["crush_straw2"] > 0,
+                f"{path}: a kernel was launched no time: {kinds[path]}")
+    require(kinds["fs_rgw_path"]["mds"]["crush_straw2"]["launches"] > 0,
+            f"fs_rgw: the MDSs launched no crush_straw2: {kinds}")
     # -- devices, ladders, device failures ---------------------------------
     for name, v in stats.items():
         for s in v:
@@ -5189,7 +5349,9 @@ def rbd_path_phase(card: str) -> dict:
     mgr_lag = [x["loop_lag"] for n, v in stats.items()
                if n.startswith("mgr.") for x in v]
     rec["mgr_worst_stall_s"] = max(x["max_s"] for x in mgr_lag)
-    rec["cli"] = clis
+    fs = rec.pop("fs_rgw")
+    rec["cli"] = [one for one in clis
+                  if path_of("cli", one["label"]) == "rbd_path"]
     record = {
         "card": card,
         "layout": {"mons": RBD_MONS, "osds": RBD_OSDS, "mgrs": RBD_MGRS,
@@ -5214,13 +5376,38 @@ def rbd_path_phase(card: str) -> dict:
                 "takeover_s": host_s["takeover"],
                 "scrapes": rec.pop("scrapes"),
                 "worst_stall_s": rec["mgr_worst_stall_s"]},
-        "launches_by_kind": kinds,
-        "gf_encode_by_step": gf_by_step,
-        "flushes": flush_summary(flushes),
+        "launches_by_kind": kinds["rbd_path"],
+        "gf_encode_by_step": {k: v for k, v in gf_by_step.items()
+                              if path_of("osd", k) == "rbd_path"},
+        "flushes": flush_summary({
+            fk: {k: v for k, v in by.items() if path_of("osd", k) ==
+                 "rbd_path"} for fk, by in flushes.items()}),
         **rec,
-        "phase_s": time.perf_counter() - t_phase,
+        "phase_s": time.perf_counter() - t_phase - fs["phase_s"],
     }
     print("rbd_path: " + json.dumps(record))
+    mds_stats = fs.pop("mds_stats")
+    mds_lag = {n: x["loop_lag"] for n, v in stats.items()
+               if n.startswith("mds.") for x in v[-1:]}
+    fs.update({
+        "mds": {"start": fs.pop("mds_start"),
+                "worst_stall_s": max(x["max_s"] for x in mds_lag.values()),
+                "loop_lag": mds_lag,
+                "takeovers": sum(v["perf"].get("takeovers", 0)
+                                 for v in mds_stats.values()),
+                "reconnect_accepted": sum(
+                    v["perf"].get("reconnect_accepted", 0)
+                    for v in mds_stats.values()),
+                "states": {n: v["state"] for n, v in mds_stats.items()}},
+        "launches_by_kind": kinds["fs_rgw_path"],
+        "gf_encode_by_step": {k: v for k, v in gf_by_step.items()
+                              if path_of("osd", k) == "fs_rgw_path"},
+        "flushes": flush_summary({
+            fk: {k: v for k, v in by.items() if path_of("osd", k) ==
+                 "fs_rgw_path"} for fk, by in flushes.items()}),
+        "cli": [one for one in clis
+                if path_of("cli", one["label"]) == "fs_rgw_path"]})
+    print("fs_rgw_path: " + json.dumps(fs))
     # -- the markdowns, elections and mgr failovers: only the phase's -------
     require(not rec["markdowns"], f"rbd: markdowns {rec['markdowns']}")
     require(not any(rec["elections_after_start"].values()),
@@ -5230,8 +5417,422 @@ def rbd_path_phase(card: str) -> dict:
             sum(m["demote"] for m in moves) == 1,
             f"rbd: mgr promotions and demotions {rec['mgr_moves']}, want "
             f"the first active and the phase's one failover")
-    return {"gf": (gf_total, worst["gf"]),
-            "crush": (crush_total, worst["crush"])}
+    require(fs["markdowns"] and
+            {e[1] for e in fs["markdowns"]} == {S3_KILL},
+            f"fs_rgw: markdowns {fs['markdowns']}, want osd.{S3_KILL}'s")
+    require(not any(fs["elections"].values()),
+            f"fs_rgw: elections {fs['elections']}")
+    require(fs["mgr_moves"] == rec["mgr_moves"],
+            f"fs_rgw: mgr promotions and demotions {fs['mgr_moves']}")
+    require(fs["mds"]["takeovers"] == 2,
+            f"fs_rgw: {fs['mds']['takeovers']} MDS takeovers, want the "
+            f"first active's and the phase's one failover")
+    return {"gf": (totals["rbd_path"]["gf_encode"], worst["gf"]),
+            "crush": (totals["rbd_path"]["crush_straw2"], worst["crush"]),
+            "fs_rgw": {
+                "gf": (totals["fs_rgw_path"]["gf_encode"], worst["gf"]),
+                "crush": (totals["fs_rgw_path"]["crush_straw2"],
+                          worst["crush"])}}
+
+
+async def s3_request(port: int, method: str, target: str, body: bytes = b"",
+                     headers: dict | None = None, signed: bool = True):
+    """One HTTP/1.1 request to the gateway at ``port``: SigV4-signed by
+    the port's ``rgw.auth`` as ``S3_USERS``' user unless ``signed`` is
+    false (anonymous). Returns (status, lower-cased headers, body)."""
+    from ceph_tpu_torch.rgw import auth as sigv4
+    (access, secret), = S3_USERS.items()
+    hdrs = {"host": S3_HOST, **(headers or {})}
+    if signed:
+        path, _, query = target.partition("?")
+        hdrs.update(sigv4.sign(method, path, query, hdrs, body, access,
+                               secret))
+    reader, writer = await asyncio.open_connection(S3_HOST, port)
+    try:
+        lines = "".join(f"{k}: {v}\r\n" for k, v in hdrs.items())
+        writer.write(f"{method} {target} HTTP/1.1\r\n{lines}"
+                     f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+        await writer.drain()
+        status = int((await asyncio.wait_for(
+            reader.readline(), CL_DEADLINE)).split()[1])
+        got = {}
+        while True:
+            line = await reader.readline()
+            if line in (b"\r\n", b"\n", b""):
+                break
+            k, _, v = line.decode().partition(":")
+            got[k.strip().lower()] = v.strip()
+        n = int(got.get("content-length", 0))
+        payload = b"" if method == "HEAD" or not n else \
+            await reader.readexactly(n)
+        return status, got, payload
+    finally:
+        writer.close()
+
+
+async def fs_rgw_steps(h) -> dict:
+    """The S3 gateway and CephFS on ``rbd_path``'s running cluster (steps
+    55-61); ``h`` carries the phase's cluster, client and helpers. Returns
+    the phase's record; every check raises."""
+    import hashlib
+
+    from ceph_tpu_torch.cephfs.client import CephFSClient
+    from ceph_tpu_torch.rgw import RGWGateway
+    from ceph_tpu_torch.rgw import auth as sigv4
+
+    c, cl, card, rng = h["c"], h["cl"], h["card"], h["rng"]
+    label, ask, cli, wait_for = h["label"], h["ask"], h["cli"], h["wait_for"]
+    host_s, rec = {}, {}
+    t_phase = time.perf_counter()
+
+    async def timed(what, coro):
+        t0 = time.perf_counter()
+        out = await coro
+        host_s[what] = time.perf_counter() - t0
+        print(f"[{card}] fs_rgw_path {what}: {host_s[what]:.3f} s",
+              flush=True)
+        return out
+
+    async def fsmap():
+        return (await cl.status()).get("fsmap") or {}
+
+    async def mds_stats():
+        names = [n for n in c.children if n.startswith("mds.")]
+        outs = await asyncio.gather(*[ask(n, "smoke stats") for n in names])
+        return dict(zip(names, outs))
+
+    # -- 55. the fs pool and two MDS daemons --------------------------------
+    await label("fs_rgw_setup")
+    t0 = time.perf_counter()
+    await c.start_fs(pool=FS_POOL, n_mds=FS_MDS, pg_num=FS_PGS)
+    host_s["start_fs"] = time.perf_counter() - t0
+    mdss = [n for n in c.children if n.startswith("mds.")]
+    await asyncio.gather(*[c.wait_for_daemon_ready(n, CL_DEADLINE)
+                           for n in mdss])
+
+    async def one_standby():
+        fm = await fsmap()
+        return fm.get("active") and fm.get("standby_count") == FS_MDS - 1
+    await wait_for(one_standby, "no active MDS with a standby")
+    first_mds = (await fsmap())["active"]
+    # the balancer's moves for the new pool's PGs land before the I/O
+    clean_at = time.time()
+    await wait_for(h["quiet"](clean_at), "the balancer never went quiet")
+    host_s["settle"] = time.perf_counter() - t0
+    await label("fs_rgw_setup")              # the MDSs' hooks too
+    st = await mds_stats()
+    rec["mds_start"] = {n: {"ready_s": v["ready_s"],
+                            "create_s": v["create_s"],
+                            "devices": v["devices"]} for n, v in st.items()}
+    for n, v in st.items():
+        require(all(d.startswith("cuda") for d in v["devices"]),
+                f"fs_rgw: {n} runs on {v['devices']}")
+    print(f"[{card}] fs_rgw_path MDS start-up: {json.dumps(rec['mds_start'])}",
+          flush=True)
+
+    # -- 56. S3: PUT, list, HEAD and GET at 16 in flight ---------------------
+    ec_io = await cl.open_ioctx("rbd_ec")
+    gw = RGWGateway(ec_io, users=S3_USERS)
+    port = await gw.start(S3_HOST)
+    try:
+        status, _, _ = await s3_request(port, "PUT", f"/{S3_BUCKET}")
+        require(status == 200, f"fs_rgw: create bucket: {status}")
+        names = [f"obj{i:03d}" for i in range(S3_OBJS)]
+        mirror = {n: rng.bytes(S3_OBJ) for n in names}
+
+        async def put(n):
+            status, hdrs, _ = await s3_request(
+                port, "PUT", f"/{S3_BUCKET}/{n}", mirror[n])
+            require(status == 200 and hdrs.get("etag") ==
+                    f'"{hashlib.md5(mirror[n]).hexdigest()}"',
+                    f"fs_rgw: PUT {n}: {status} {hdrs.get('etag')}")
+        await label("fs_rgw_s3_put")
+        await timed("s3_put", bounded(S3_INFLIGHT, [
+            lambda n=n: put(n) for n in names]))
+        await label("fs_rgw_s3_list")
+        status, _, xml = await timed("s3_list", s3_request(
+            port, "GET", f"/{S3_BUCKET}"))
+        want = "".join(f"<Contents><Key>{n}</Key><Size>{S3_OBJ}</Size>"
+                       f"</Contents>" for n in names)
+        require(status == 200 and want.encode() in xml,
+                f"fs_rgw: the listing: {status} {xml[:300]!r}")
+
+        async def head(n):
+            status, hdrs, _ = await s3_request(port, "HEAD",
+                                               f"/{S3_BUCKET}/{n}")
+            require(status == 200 and
+                    int(hdrs.get("content-length", -1)) == S3_OBJ,
+                    f"fs_rgw: HEAD {n}: {status} {hdrs}")
+        await label("fs_rgw_s3_head")
+        await timed("s3_head", bounded(S3_INFLIGHT, [
+            lambda n=n: head(n) for n in names]))
+
+        async def get(n, want_etag=None):
+            status, hdrs, data = await s3_request(port, "GET",
+                                                  f"/{S3_BUCKET}/{n}")
+            require(status == 200 and data == mirror[n],
+                    f"fs_rgw: GET {n}: {status}, "
+                    f"{len(data)} bytes differ from the mirror")
+            if want_etag is not None:
+                require(hdrs.get("etag") == f'"{want_etag}"',
+                        f"fs_rgw: GET {n}: ETag {hdrs.get('etag')}")
+        await label("fs_rgw_s3_get")
+        await timed("s3_get", bounded(S3_INFLIGHT, [
+            lambda n=n: get(n) for n in names]))
+
+        # -- 57. multipart, a presigned GET and a public-read object ---------
+        await label("fs_rgw_s3_multipart")
+        mp = "multipart.bin"
+        mirror[mp] = rng.bytes(S3_MP)
+
+        async def multipart():
+            status, _, xml = await s3_request(
+                port, "POST", f"/{S3_BUCKET}/{mp}?uploads")
+            require(status == 200, f"fs_rgw: initiate: {status}")
+            upload = xml.split(b"<UploadId>")[1].split(
+                b"</UploadId>")[0].decode()
+            parts = [mirror[mp][o:o + S3_PART]
+                     for o in range(0, S3_MP, S3_PART)]
+
+            async def part(i):
+                status, hdrs, _ = await s3_request(
+                    port, "PUT", f"/{S3_BUCKET}/{mp}?partNumber={i + 1}"
+                                 f"&uploadId={upload}", parts[i])
+                require(status == 200 and hdrs.get("etag") ==
+                        f'"{hashlib.md5(parts[i]).hexdigest()}"',
+                        f"fs_rgw: part {i + 1}: {status}")
+            await bounded(S3_INFLIGHT, [lambda i=i: part(i)
+                                        for i in range(len(parts))])
+            body = ("<CompleteMultipartUpload>" + "".join(
+                f"<Part><PartNumber>{i + 1}</PartNumber>"
+                f'<ETag>"{hashlib.md5(p).hexdigest()}"</ETag></Part>'
+                for i, p in enumerate(parts)) +
+                "</CompleteMultipartUpload>").encode()
+            status, _, xml = await s3_request(
+                port, "POST", f"/{S3_BUCKET}/{mp}?uploadId={upload}", body)
+            etag = hashlib.md5(b"".join(
+                hashlib.md5(p).digest() for p in parts)).hexdigest()
+            etag = f"{etag}-{len(parts)}"
+            require(status == 200 and f'"{etag}"'.encode() in xml,
+                    f"fs_rgw: complete: {status} {xml[:300]!r}")
+            return etag
+        mp_etag = await timed("s3_multipart", multipart())
+        await timed("s3_multipart_get", get(mp, mp_etag))
+        await label("fs_rgw_s3_acl")
+        qs = sigv4.presign("GET", f"/{S3_BUCKET}/{names[0]}", S3_HOST,
+                           *next(iter(S3_USERS.items())), expires=600)
+        status, _, data = await s3_request(
+            port, "GET", f"/{S3_BUCKET}/{names[0]}?{qs}", signed=False)
+        require(status == 200 and data == mirror[names[0]],
+                f"fs_rgw: presigned GET: {status}")
+        status, _, _ = await s3_request(
+            port, "GET", f"/{S3_BUCKET}/{names[0]}", signed=False)
+        require(status == 403, f"fs_rgw: anonymous GET of a private "
+                               f"object: {status}")
+        mirror["public"] = rng.bytes(S3_OBJ)
+        status, _, _ = await s3_request(
+            port, "PUT", f"/{S3_BUCKET}/public", mirror["public"],
+            headers={"x-amz-acl": "public-read"})
+        require(status == 200, f"fs_rgw: public-read PUT: {status}")
+        status, _, data = await s3_request(
+            port, "GET", f"/{S3_BUCKET}/public", signed=False)
+        require(status == 200 and data == mirror["public"],
+                f"fs_rgw: anonymous GET of a public-read object: {status}")
+
+        # -- 58. CephFS: mdtest-easy, `mds fail` during the creates ----------
+        await label("fs_rgw_mount")
+        clients = [await CephFSClient.create(
+            c.monmap, None, FS_POOL, keyring=c.keyring, name=n,
+            device="cuda") for n in FS_CLIENTS]
+        for fc in clients:
+            require(fc.ioctx.rados.monc.device.type == "cuda",
+                    "fs_rgw: a CephFS client is not on the card")
+        seen = [{} for _ in clients]
+        for i, fc in enumerate(clients):
+            # when this client's map shows the failure, the new active and
+            # its own reconnect to rank 0
+            real_fsmap, real_reconnect = fc._on_fsmap, fc._reconnect_rank
+
+            def on_fsmap(fm, i=i, real=real_fsmap):
+                holder = fm.rank_holder(0)
+                if holder is None or holder.name != first_mds:
+                    seen[i].setdefault("failed", time.perf_counter())
+                    if holder is not None and holder.state == "active":
+                        seen[i].setdefault("active", time.perf_counter())
+                return real(fm)
+
+            async def reconnect(rank, real=real_reconnect, i=i):
+                await real(rank)
+                seen[i].setdefault("reconnected", time.perf_counter())
+            fc._on_fsmap, fc._reconnect_rank = on_fsmap, reconnect
+        dirs = [f"/mdtest/{i}" for i in range(len(clients))]
+        await clients[0].mkdir("/mdtest")
+        await clients[0].mkdir("/ior")
+        for i, fc in enumerate(clients):
+            await fc.mkdir(dirs[i])
+            await fc.mkdir(f"/ior/{i}")
+        await label("fs_rgw_mdtest_create")
+        failed = asyncio.Event()
+        acked = [[] for _ in clients]
+
+        async def fail_active():
+            await cli("ceph_cli", "mds", "fail", first_mds)
+            failed.set()
+
+        async def creates(i):
+            for j in range(MDT_FILES):
+                if j == MDT_FILES - MDT_AFTER_FAIL:
+                    await failed.wait()
+                fh = await clients[i].open_file(f"{dirs[i]}/f{j:05d}", "w")
+                await fh.close()
+                acked[i].append(f"f{j:05d}")
+        t0 = time.perf_counter()
+        fail = asyncio.ensure_future(fail_active())
+        await asyncio.gather(*[creates(i) for i in range(len(clients))])
+        host_s["mdtest_create"] = time.perf_counter() - t0
+        print(f"[{card}] fs_rgw_path mdtest_create: "
+              f"{host_s['mdtest_create']:.3f} s", flush=True)
+        await fail
+
+        async def taken_over():
+            fm = await fsmap()
+            return fm.get("active") not in (None, first_mds)
+        await wait_for(taken_over, "no standby took rank 0")
+        rec["mds_failover"] = {
+            "failed": first_mds, "active": (await fsmap())["active"],
+            "clients": [{k: v - d["failed"] for k, v in d.items()}
+                        for d in seen]}
+        for d in seen:
+            require({"failed", "active", "reconnected"} <= set(d),
+                    f"fs_rgw: a client missed the failover: {seen}")
+        host_s["mds_failover"] = min(d["active"] - d["failed"] for d in seen)
+        host_s["mds_reconnect"] = max(d["reconnected"] - d["failed"]
+                                      for d in seen)
+        print(f"[{card}] fs_rgw_path failover: {rec['mds_failover']}",
+              flush=True)
+        for i, fc in enumerate(clients):
+            listing = await fc.ls(dirs[i])
+            require(listing == sorted(set(acked[i])) and
+                    len(acked[i]) == MDT_FILES,
+                    f"fs_rgw: {dirs[i]} holds {len(listing)} of "
+                    f"{len(acked[i])} acknowledged files")
+
+        async def stats(i):
+            for name in acked[i]:
+                got = await clients[i].stat(f"{dirs[i]}/{name}")
+                require(got["type"] == "file" and got["size"] == 0,
+                        f"fs_rgw: stat {dirs[i]}/{name}: {got}")
+        await label("fs_rgw_mdtest_stat")
+        await timed("mdtest_stat", asyncio.gather(
+            *[stats(i) for i in range(len(clients))]))
+
+        async def unlinks(i):
+            for name in acked[i]:
+                await clients[i].unlink(f"{dirs[i]}/{name}")
+        await label("fs_rgw_mdtest_unlink")
+        await timed("mdtest_unlink", asyncio.gather(
+            *[unlinks(i) for i in range(len(clients))]))
+        for i, fc in enumerate(clients):
+            require(await fc.ls(dirs[i]) == [],
+                    f"fs_rgw: {dirs[i]} not empty after the unlinks")
+
+        # -- 59. ior-easy: a file per client, sequential 4 MiB transfers -----
+        data = [[rng.bytes(IOR_XFER) for _ in range(IOR_SIZE // IOR_XFER)]
+                for _ in clients]
+
+        async def ior_write(i):
+            fh = await clients[i].open_file(f"/ior/{i}/data", "w")
+            for k, x in enumerate(data[i]):
+                await fh.write(x, offset=k * IOR_XFER)
+            await fh.close()
+
+        async def ior_read(i):
+            fh = await clients[i].open_file(f"/ior/{i}/data", "r")
+            for k, x in enumerate(data[i]):
+                got = await fh.read(IOR_XFER, offset=k * IOR_XFER)
+                require(got == x, f"fs_rgw: /ior/{i}/data transfer {k} "
+                                  f"differs from the mirror")
+            await fh.close()
+        await label("fs_rgw_ior_write")
+        await timed("ior_write", asyncio.gather(
+            *[ior_write(i) for i in range(len(clients))]))
+        await label("fs_rgw_ior_read")
+        await timed("ior_read", asyncio.gather(
+            *[ior_read(i) for i in range(len(clients))]))
+
+        # -- 60. a snapshot before a rewrite -----------------------------------
+        await label("fs_rgw_snap")
+        fc = clients[0]
+        await timed("snap", fc.mkdir("/ior/0/.snap/s1"))
+        new = rng.bytes(IOR_XFER)
+        fh = await fc.open_file("/ior/0/data", "w")
+        await fh.write(new, offset=IOR_XFER)
+        await fh.close()
+        fh = await fc.open_file("/ior/0/.snap/s1/data", "r")
+        old = await fh.read(IOR_XFER, offset=IOR_XFER)
+        await fh.close()
+        fh = await fc.open_file("/ior/0/data", "r")
+        head = await fh.read(IOR_XFER, offset=IOR_XFER)
+        await fh.close()
+        require(old == data[0][1] and head == new,
+                "fs_rgw: the snapshot does not read back the old bytes")
+        for fc in clients:
+            await fc.unmount()
+
+        # -- 61. an OSD hard-stopped; degraded GETs ---------------------------
+        await label("fs_rgw_degraded")
+        victim = f"osd.{S3_KILL}"
+        await h["collect"]([victim])      # its launches, checked, so far
+        t0 = time.perf_counter()
+        c.children[victim].desired = "stopped"      # no respawn
+        c.kill_daemon(victim)
+        h["dead"].add(victim)
+
+        async def down():
+            st = await cl.status()
+            return st.get("osdmap", {}).get("num_up_osds") == RBD_OSDS - 1
+        await wait_for(down, f"{victim} was not marked down")
+        host_s["detect"] = time.perf_counter() - t0
+        await c.children[victim].proc.wait()
+        picks = [names[int(k)] for k in rng.choice(
+            S3_OBJS, S3_DEGRADED - 1, replace=False)]
+        await timed("s3_degraded_get", bounded(S3_INFLIGHT, [
+            lambda n=n: get(n) for n in picks] + [
+            lambda: get(mp, mp_etag)]))
+    finally:
+        await gw.stop()
+    rec["mds_stats"] = await mds_stats()
+    gib = 1 << 30
+    rec.update({
+        "card": card,
+        "layout": {"fs_pool": f"{FS_POOL} size 3 pg_num {FS_PGS}",
+                   "mds": FS_MDS, "clients": len(FS_CLIENTS),
+                   "s3_pool": "rbd_ec", "s3_objects": S3_OBJS,
+                   "s3_object": S3_OBJ, "multipart": [S3_MP, S3_PART],
+                   "mdtest_files": MDT_FILES, "ior": [IOR_SIZE, IOR_XFER],
+                   "killed": victim},
+        "host_s": host_s,
+        "s3": {"put_GiBs": S3_OBJS * S3_OBJ / host_s["s3_put"] / gib,
+               "get_GiBs": S3_OBJS * S3_OBJ / host_s["s3_get"] / gib,
+               "degraded_get_GiBs": ((S3_DEGRADED - 1) * S3_OBJ + S3_MP) /
+               host_s["s3_degraded_get"] / gib,
+               "head_ops": S3_OBJS / host_s["s3_head"],
+               "list_s": host_s["s3_list"],
+               "multipart_s": host_s["s3_multipart"]},
+        "cephfs": {
+            "creates_per_s": len(clients) * MDT_FILES /
+            host_s["mdtest_create"],
+            "stats_per_s": len(clients) * MDT_FILES / host_s["mdtest_stat"],
+            "unlinks_per_s": len(clients) * MDT_FILES /
+            host_s["mdtest_unlink"],
+            "ior_write_GiBs": len(clients) * IOR_SIZE /
+            host_s["ior_write"] / gib,
+            "ior_read_GiBs": len(clients) * IOR_SIZE /
+            host_s["ior_read"] / gib},
+        "failover": {"mds_fail_to_active_s": host_s["mds_failover"],
+                     "reconnect_s": host_s["mds_reconnect"]},
+        "phase_s": time.perf_counter() - t_phase})
+    return rec
 
 
 if __name__ == "__main__":

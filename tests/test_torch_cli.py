@@ -1,11 +1,13 @@
 """The port's CLIs (``ceph_tpu_torch/bench/{ceph,rados,rbd}_cli.py``,
 ``--device cpu``) against ``ceph_tpu``'s on the same inputs:
-``tests/test_cli_tools.py``'s four cases and the mgr verbs
+``tests/test_cli_tools.py``'s four cases, the mgr verbs
 (``mgr dump|stat|fail``, ``progress ls|json``, ``tune status|log``,
-``daemon <mgr asok> status``).
+``daemon <mgr asok> status``) and the fs verbs (``fs status|dump``,
+``fs subtree ls``, ``mds fail``).
 
 Each package serves its own cluster in a subprocess, with the same
-arguments (one mon, three OSDs, two mgrs, pool ``rbd`` of 64 PGs), and
+arguments (one mon, three OSDs, two mgrs, pool ``rbd`` of 64 PGs; for
+the fs verbs a second pair with two MDSs on pool ``cephfs``), and
 each step runs through both packages' CLIs, each on its own cluster.
 Tolerance: exact. Return codes and standard output are equal, text or
 JSON, with only what differs between two live clusters masked: map
@@ -37,17 +39,20 @@ from ceph_tpu_torch.bench import ceph_cli, rados_cli, rbd_cli
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SERVE_ARGS = ["--serve", "--mon-num", "1", "--osd-num", "3",
               "--mgr-num", "2", "--pool", "rbd", "--pg-num", "64"]
+FS_SERVE_ARGS = ["--serve", "--mon-num", "1", "--osd-num", "3",
+                 "--mds-num", "2", "--pool", "cephfs", "--pg-num", "16"]
 CLIS = {"ceph": (ref_ceph_cli.main, ceph_cli.main),
         "rados": (ref_rados_cli.main, rados_cli.main),
         "rbd": (ref_rbd_cli.main, rbd_cli.main)}
 
 
-def _serve(module: str, tmp: pathlib.Path, extra: list):
+def _serve(module: str, tmp: pathlib.Path, extra: list,
+           args: list = SERVE_ARGS):
     conf = str(tmp / "cluster.conf")
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     logf = open(conf + ".log", "wb")      # a pipe would deadlock once
     proc = subprocess.Popen(               # the buffer fills
-        [sys.executable, "-m", module] + SERVE_ARGS + extra
+        [sys.executable, "-m", module] + args + extra
         + ["--conf", conf, "--asok", str(tmp / "cluster.asok")],
         cwd=str(REPO), env=env, stdout=logf, stderr=subprocess.STDOUT)
     return proc, conf, logf
@@ -73,14 +78,13 @@ def _stop(proc, logf) -> None:
     logf.close()
 
 
-@pytest.fixture(scope="module")
-def confs(tmp_path_factory):
+def _served_pair(tmp_path_factory, args: list, name: str):
     """(reference conf, port conf): both clusters started together."""
     served = [_serve("ceph_tpu.cluster.vstart",
-                     tmp_path_factory.mktemp("cli_ref"), []),
+                     tmp_path_factory.mktemp(f"{name}_ref"), [], args),
               _serve("ceph_tpu_torch.cluster.vstart",
-                     tmp_path_factory.mktemp("cli_port"),
-                     ["--device", "cpu"])]
+                     tmp_path_factory.mktemp(f"{name}_port"),
+                     ["--device", "cpu"], args)]
     try:
         deadline = time.time() + 180
         for proc, conf, _ in served:
@@ -89,6 +93,16 @@ def confs(tmp_path_factory):
     finally:
         for proc, _, logf in served:
             _stop(proc, logf)
+
+
+@pytest.fixture(scope="module")
+def confs(tmp_path_factory):
+    yield from _served_pair(tmp_path_factory, SERVE_ARGS, "cli")
+
+
+@pytest.fixture(scope="module")
+def fs_confs(tmp_path_factory):
+    yield from _served_pair(tmp_path_factory, FS_SERVE_ARGS, "cli_fs")
 
 
 def _mask(x):
@@ -302,6 +316,37 @@ def test_mgr_verbs_and_failover(both, confs):
                and d.get("standbys") == [active], ["mgr", "dump"],
                "the standby takes over and the failed mgr stands by")
     assert both("ceph", "mgr", "dump")
+
+
+def test_fs_verbs_and_mds_fail(fs_confs, capsys):
+    """`ceph fs status|dump`, `fs subtree ls` and `ceph mds fail` with
+    the standby's takeover, each equal to the reference's on its own
+    cluster (``fs dump``'s fence epoch is an osdmap epoch, masked like
+    the others)."""
+    both = Both(fs_confs, capsys)
+    both.until(lambda d: d["ranks"] and d["ranks"][0]["state"] == "active"
+               and len(d["standbys"]) == 1, ["fs", "status"],
+               "an MDS goes active beside a standby")
+
+    def fs(*words):
+        outs = [json.loads(o) for o in both.raw("ceph",
+                                                lambda _: list(words))]
+        for d in outs:
+            d["last_failure_osd_epoch"] = \
+                "<epoch>" if d["last_failure_osd_epoch"] else 0
+        assert _mask(outs[1]) == _mask(outs[0]), words
+        return outs[1]
+    st = fs("fs", "status")
+    assert fs("fs", "dump")["subtrees"] == {"/": 0}
+    both("ceph", "fs", "subtree", "ls")
+    active = st["ranks"][0]["name"]
+    both("ceph", "mds", "fail", active)
+    both.until(lambda d: d["ranks"] and d["ranks"][0]["name"] != active
+               and d["ranks"][0]["state"] == "active", ["fs", "dump"],
+               "the standby takes rank 0")
+    after = fs("fs", "dump")
+    assert after["stopped_gids"] and not after["standbys"]
+    assert after["last_failure_osd_epoch"] == "<epoch>"
 
 
 def test_clis_map_on_the_card_unless_told(confs, monkeypatch):

@@ -1,7 +1,8 @@
 """Wire encodings of the port's messages against the golden corpus.
 
 Every message type the port registers (``osd/messages.py``,
-``mon/messages.py``, ``mgr/messages.py``) encodes its canonical instance, built the way
+``mon/messages.py``, ``mgr/messages.py``, ``cephfs/mds.py``) encodes its
+canonical instance, built the way
 ``tests/test_meta.py`` builds the reference's, to the bytes recorded in
 ``tests/golden/messages.json`` (read only), equal to ``ceph_tpu``'s
 encoding of the same instance, and decodes back to it field for field.
@@ -16,10 +17,12 @@ from pathlib import Path
 
 import pytest
 
-import ceph_tpu.mgr.messages  # noqa: F401  (registers the reference's)
+import ceph_tpu.cephfs.mds  # noqa: F401  (registers the reference's)
+import ceph_tpu.mgr.messages  # noqa: F401
 import ceph_tpu.mon.messages  # noqa: F401
 import ceph_tpu.osd.messages  # noqa: F401
-import ceph_tpu_torch.mgr.messages  # noqa: F401  (registers the port's)
+import ceph_tpu_torch.cephfs.mds  # noqa: F401  (registers the port's)
+import ceph_tpu_torch.mgr.messages  # noqa: F401
 import ceph_tpu_torch.mon.messages  # noqa: F401
 import ceph_tpu_torch.osd.messages  # noqa: F401
 from ceph_tpu.msg.message import _REGISTRY as REF_REGISTRY
@@ -61,17 +64,19 @@ def _canonical(cls):
 
 
 def test_the_port_registers_the_osd_and_mon_messages():
-    """Every osd/mon/mgr message of the reference has its port twin,
+    """Every osd/mon/mgr/mds message of the reference has its port twin,
     under the same type code and name, with the same fields."""
     ref = {code: cls for code, cls in REF_REGISTRY.items()
            if cls.__module__ in ("ceph_tpu.osd.messages",
                                  "ceph_tpu.mon.messages",
-                                 "ceph_tpu.mgr.messages")}
+                                 "ceph_tpu.mgr.messages",
+                                 "ceph_tpu.cephfs.mds")}
     assert {c: cls.__name__ for c, cls in PORT.items()} == \
         {c: cls.__name__ for c, cls in ref.items()}
     for code, cls in PORT.items():
         assert cls.FIELDS == ref[code].FIELDS, cls.__name__
     assert len(PORT) >= 40
+    assert {c for c in PORT if 220 <= c <= 226} == set(range(220, 227))
 
 
 @pytest.mark.parametrize("code", sorted(PORT),

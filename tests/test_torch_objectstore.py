@@ -178,6 +178,120 @@ def test_waldb_torn_tail_discarded(tmp_path):
     db3.close()
 
 
+def kv_batches(seed: int, n: int) -> list:
+    """Seeded kv batches of sets (values up to 3 KiB), removals and one
+    prefix drop, as (op, prefix, key, value) lists."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        ops = []
+        for _ in range(int(rng.integers(1, 4))):
+            key = f"k{int(rng.integers(0, 40))}"
+            prefix = "pq"[int(rng.integers(0, 2))]
+            if rng.random() < 0.2:
+                ops.append(("rm", prefix, key, None))
+            else:
+                ops.append(("set", prefix, key,
+                            rng.bytes(int(rng.integers(1, 3 << 10)))))
+        if i == n // 2:
+            ops.append(("rmprefix", "q", "", None))
+        out.append(ops)
+    return out
+
+
+def submit(db, ops) -> None:
+    t = db.get_transaction()
+    for op, prefix, key, value in ops:
+        if op == "set":
+            t.set(prefix, key, value)
+        elif op == "rm":
+            t.rmkey(prefix, key)
+        else:
+            t.rmkeys_by_prefix(prefix)
+    db.submit_transaction(t)
+
+
+def table(db) -> dict:
+    return {p: list(db.get_iterator(p)) for p in "pq"}
+
+
+def test_waldb_threshold_compaction_files_match_reference(tmp_path):
+    """With a small threshold, compaction runs many times over the batches:
+    once each has ended, the port's files equal ceph_tpu's, which compacts
+    in line at the same points; both packages reopen either directory to
+    the same table."""
+    dbs = {"jax": JaxWALDB(str(tmp_path / "jax"), compact_threshold=8 << 10),
+           "torch": WALDB(str(tmp_path / "torch"), compact_threshold=8 << 10)}
+    started = 0
+    for ops in kv_batches(5, 120):
+        for db in dbs.values():
+            submit(db, ops)
+        if dbs["torch"]._bg is not None:
+            started += 1
+            dbs["torch"]._bg.join()         # ended before the next batch
+    assert started >= 5
+    assert table(dbs["jax"]) == table(dbs["torch"])
+    for db in dbs.values():
+        db.close()
+    assert tree_bytes(tmp_path / "jax") == tree_bytes(tmp_path / "torch")
+    for name in ("jax", "torch"):
+        for cls in (JaxWALDB, WALDB):
+            again = cls(str(tmp_path / name))
+            assert table(again) == table(dbs["jax"])
+            again.close()
+
+
+def test_waldb_compaction_leaves_the_write_path(tmp_path, monkeypatch):
+    """The batch that crosses the threshold returns while its snapshot is
+    still being written, and later batches go on; every file state on the
+    way (the old snapshot, the new one beside the whole WAL, the swapped
+    WAL) reopens in both packages to the table as it stood."""
+    import shutil
+    import threading
+
+    gate = threading.Event()
+    real = WALDB._write_snapshot
+
+    def held(self, frozen):
+        if threading.current_thread() is not threading.main_thread():
+            assert gate.wait(30)
+        real(self, frozen)
+    monkeypatch.setattr(WALDB, "_write_snapshot", held)
+    path = tmp_path / "kv"
+    db, mirror = WALDB(str(path), compact_threshold=16 << 10), MemDB()
+    batches = kv_batches(6, 60)
+    crossed = None
+    for i, ops in enumerate(batches):
+        submit(db, ops)
+        submit(mirror, ops)
+        if db._bg is not None and crossed is None:
+            crossed = i
+        if crossed is not None and i == crossed + 10:
+            break
+    assert crossed is not None and db._bg.is_alive()
+
+    def reopened(tag):
+        if tag != "while_writing" and db._bg is not None:
+            db._bg.join()                   # no file half-written
+        copy = tmp_path / tag
+        shutil.copytree(path, copy)
+        for cls in (JaxWALDB, WALDB):
+            again = cls(str(copy))
+            assert table(again) == table(mirror), (tag, cls)
+            again.close()
+    reopened("while_writing")
+    gate.set()
+    db._bg.join()
+    reopened("snapshot_renamed")            # new snapshot, the whole WAL
+    for ops in batches[crossed + 11:]:
+        submit(db, ops)
+        submit(mirror, ops)
+    assert table(db) == table(mirror)
+    reopened("swapped")
+    db.close()
+    reopened("closed")
+
+
 @pytest.mark.parametrize("codec", ["kv", "store"])
 def test_transaction_codecs_bytes_equal(codec):
     """KVTransaction and Transaction (every op) encode to ceph_tpu's
@@ -639,3 +753,20 @@ def test_pg_log_matches_reference(case):
         a.trim(keep=7)
         b.trim(keep=7)
         assert len(b.entries) == 7 and a.encode() == b.encode()
+
+
+@pytest.mark.parametrize("inline", [False, True])
+def test_walstore_bench_small(tmp_path, capsys, inline):
+    """``bench/walstore_bench.py`` at a small size: one timing a write,
+    compactions started, and the store it made removed again."""
+    import json
+
+    from ceph_tpu_torch.bench import walstore_bench
+    argv = ["--base-mib", "4", "--object-mib", "4", "--xfer-mib", "1",
+            "--threshold-mib", "2", "--dir", str(tmp_path)]
+    assert walstore_bench.main(argv + (["--inline"] if inline else [])) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["inline"] is inline and len(out["writes_s"]) == 4
+    assert out["compactions"] >= 1
+    assert out["worst_s"] == max(out["writes_s"]) > 0
+    assert os.listdir(tmp_path) == []

@@ -14,9 +14,10 @@ The proc case shares one spawned cluster, as the reference's does:
      admin socket.
 
 The reference's third phase is the Thrasher's storm with a mgr; the
-Thrasher waits for its port, and the proc mgr children have a case of
-their own here (two mgrs, a SIGKILL of the active, the standby's
-takeover). The reference's three mons were there for the storm's
+Thrasher waits for its port, and the proc mgr and mds children have
+cases of their own here (two mgrs, a SIGKILL of the active, the
+standby's takeover; ``start_fs`` with two MDSs, a SIGKILL of the active,
+the standby's takeover with a client's files intact). The reference's three mons were there for the storm's
 lead-mon kill, so the first case runs one (three mons
 started at once can elect two leaders, a reference fault the port keeps:
 ROADMAP Queue C). The reference case flakes on "no pool 't'" right after
@@ -151,8 +152,13 @@ async def _num_up(c, n: int) -> bool:
 
 
 def test_unported_kinds_raise():
-    """Only the MDS is left unported: asking for it raises, naming it;
-    the mgr kinds are accepted by both backends."""
+    """No daemon kind is left unported: the vstart module has no
+    ``not_ported`` any more, both backends accept the mgr kinds, and the
+    in-process ``start_fs``/``add_mds`` boot MDSs on the cluster's
+    device (the proc backend's mds kind has its case below)."""
+    from ceph_tpu_torch.cluster import proc, vstart
+    assert not hasattr(vstart, "not_ported")
+    assert not hasattr(proc, "not_ported")
     Cluster(n_mons=1, n_osds=1, mgr_modules=["prometheus"],
             backend="proc", device="cpu")
     Cluster(n_mons=1, n_osds=1, mgr_modules=[], device="cpu")
@@ -160,16 +166,62 @@ def test_unported_kinds_raise():
     async def go():
         c = await Cluster(n_mons=1, n_osds=1, device="cpu").start()
         try:
-            with pytest.raises(NotImplementedError, match="MDS"):
-                await c.start_fs()
-            with pytest.raises(NotImplementedError, match="MDS"):
-                await c.add_mds("a")
+            await c.client.pool_create("cephfs", pg_num=4, size=1,
+                                       min_size=1)
+            await c.wait_for_clean(timeout=60)
+            c.fs_pool = "cephfs"
+            mds = await c.add_mds("a")
+            await c.wait_for_mds_active(timeout=30)
+            assert c.mds_active_name() == "a"
+            assert mds.device.type == "cpu"
         finally:
             await c.stop()
     run(go())
-    with pytest.raises(NotImplementedError, match="MDS"):
-        run(Cluster(n_mons=1, n_osds=1, backend="proc",
-                    device="cpu").start_fs())
+
+
+def test_proc_mds_children_and_failover():
+    """``ProcCluster.start_fs`` with two mds children (gid = pid, on the
+    conf's device): one goes active, its admin socket answers with its
+    identity and the fault verbs, a client's files survive a SIGKILL of
+    the active, and the standby takes rank 0 by beacon grace."""
+    from ceph_tpu_torch.cephfs.client import CephFSClient
+
+    async def go():
+        c = Cluster(n_mons=1, n_osds=3, backend="proc", device="cpu",
+                    config={"mds_beacon_grace": 3.0})
+        await c.start()
+        try:
+            await c.start_fs(n_mds=2, pg_num=8)
+            st = await c.client.status()
+            first = st["fsmap"]["active"]
+            name = f"mds.{first}"
+            ident = await c.daemon_command(name, "status")
+            assert ident == {"name": first, "gid": c.children[name].pid,
+                             "state": "active"}
+            assert await c.daemon_command(name, "fault ls") == {}
+            cl = await CephFSClient.create(c.monmap, None, "cephfs",
+                                           keyring=c.keyring,
+                                           name="client.admin",
+                                           device="cpu")
+            await cl.mkdir("/d")
+            await cl.write_file("/d/f", b"before the kill")
+            c.kill_daemon(name)
+
+            async def taken_over():
+                fm = (await c.client.status()).get("fsmap") or {}
+                return fm.get("active") not in (None, first)
+            await _wait(taken_over, timeout=45.0)
+            second = (await c.client.status())["fsmap"]["active"]
+            st2 = await c.daemon_command(f"mds.{second}", "status")
+            assert st2["state"] == "active"
+            assert st2["gid"] == c.children[f"mds.{second}"].pid
+            assert await cl.read_file("/d/f") == b"before the kill"
+            await cl.write_file("/d/g", b"after")
+            assert await cl.ls("/d") == ["f", "g"]
+            await cl.unmount()
+        finally:
+            await c.stop()
+    run(go())
 
 
 def test_proc_mgr_children_and_failover():
