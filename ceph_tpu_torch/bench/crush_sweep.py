@@ -13,6 +13,10 @@ plus its mixed-weight, choose_args and quantized choose_args variants.
     python -m ceph_tpu_torch.bench.crush_sweep --num-pgs 2097152 --variants
 
 Runs on CUDA unless ``--device cpu`` (where the host clock times it).
+``--checkpoint PATH`` runs one resumable sweep of ``--num-pgs`` PGs in
+``--chunk``-PG chunks instead (``utils/checkpoint.py``; rerun with the
+same path to resume), and ``--profile DIR`` writes a ``torch.profiler``
+Chrome trace of whichever run into DIR.
 
 Each row records the engine the plan promised before the run and the one
 the last sweep ran on. A difference still standing at the end (a kernel
@@ -205,13 +209,41 @@ def main(argv=None) -> dict:
                     help="also measure the mixed-weight and choose_args "
                          "maps")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"])
+    ap.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="resumable full sweep with per-chunk checkpoint "
+                         "(SURVEY.md §5.4); rerun with the same path to "
+                         "resume after an interruption")
+    ap.add_argument("--chunk", type=int, default=1 << 22,
+                    help="PGs per checkpoint chunk")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the sweep")
     args = ap.parse_args(argv)
-    if args.variants:
-        res = sweep_rate_variants(args.num_osds, args.num_pgs, args.num_rep,
-                                  device=args.device)
+    from ceph_tpu_torch.utils.profiling import trace
+    if args.checkpoint:
+        from ceph_tpu_torch.utils.checkpoint import resumable_sweep
+        m = canonical_map(args.num_osds)
+        t0 = time.perf_counter()
+        with trace(args.profile):
+            state, done = resumable_sweep(
+                m, 0, args.num_pgs, args.num_rep, args.checkpoint,
+                chunk=args.chunk, mapper=Mapper(m, device=args.device))
+        res = {
+            "metric": "crush_resumable_sweep",
+            "done": done,
+            "cursor": state.cursor,
+            "n_pgs": state.n_total,
+            "bad_mappings": state.bad,
+            "placements": int(state.counts.sum()),
+            "seconds_this_run": round(time.perf_counter() - t0, 3),
+        }
+    elif args.variants:
+        with trace(args.profile):
+            res = sweep_rate_variants(args.num_osds, args.num_pgs,
+                                      args.num_rep, device=args.device)
     else:
         mapper = Mapper(canonical_map(args.num_osds), device=args.device)
-        res = sweep_rate(mapper, args.num_pgs, args.num_rep)
+        with trace(args.profile):
+            res = sweep_rate(mapper, args.num_pgs, args.num_rep)
     print(json.dumps(res))
     return res
 

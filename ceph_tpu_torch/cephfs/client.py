@@ -33,7 +33,9 @@ The port's copy of ``ceph_tpu/cephfs/client.py``. ``CephFSClient.create``
 takes ``device=`` for the ``Rados`` it owns (CUDA unless ``"cpu"``; it
 raises without a card): its data path maps PGs by ``crush_straw2`` on
 the card. A client built on a given ``IoCtx`` runs where that ioctx's
-``Rados`` does.
+``Rados`` does. One departure: the lease loop also renews the owned
+``MonClient``'s subscriptions, so a client whose mon died and came back
+empty still sees the next MDS failover (the reference's never does).
 """
 
 from __future__ import annotations
@@ -352,6 +354,14 @@ class CephFSClient(Dispatcher):
         try:
             while True:
                 await asyncio.sleep(self.lease_interval)
+                if self._own_rados is not None:
+                    # the mon holding our mdsmap/osdmap subscriptions may
+                    # die and come back empty: renew them, as a daemon's
+                    # idle loop does (ref: MonClient::tick -> renew_subs).
+                    # Without it a failover after a mon's death is never
+                    # seen and the sessions are never reconnected; the
+                    # reference's client has no renewal (ROADMAP Queue C)
+                    self._own_rados.monc.renew_subs()
                 for rank in sorted(self._open_ranks):
                     addr = self._rank_addrs.get(rank)
                     if addr is None:

@@ -147,6 +147,7 @@ class ProcCluster:
         self.spawn_to_healthy_s: float | None = None
         self._closing = False
         self.asok = None                 # cluster-level, via vstart
+        self._zombies: list = []         # kill_mds's clients
 
     # -- bring-up ----------------------------------------------------------
     async def start(self) -> "ProcCluster":
@@ -332,6 +333,80 @@ class ProcCluster:
                 raise TimeoutError(f"no active mds ({fsmap})")
             await asyncio.sleep(0.2)
 
+    @property
+    def mdss(self) -> list[str]:
+        """The MDS children the supervisor keeps running."""
+        return [n for n, ch in self.children.items()
+                if n.startswith("mds.") and ch.desired == "run"]
+
+    async def mds_active_name(self, rank: int = 0) -> str | None:
+        """``rank``'s ACTIVE holder per the mon's FSMap (over the wire,
+        so a coroutine here where ``Cluster``'s is a plain call)."""
+        ret, _, out = await self.client.mon_command({"prefix": "fs dump"})
+        if ret != 0:
+            return None
+        return next((r["name"] for r in json.loads(out)["ranks"]
+                     if r["rank"] == rank and r["state"] == "active"), None)
+
+    async def wait_for_mds_active(self, not_name: str | None = None,
+                                  timeout: float = 60.0,
+                                  rank: int = 0) -> str:
+        """Until some daemon is active on ``rank`` other than
+        ``not_name`` (the failed one)."""
+        deadline = asyncio.get_event_loop().time() + timeout
+        while True:
+            name = await self.mds_active_name(rank)
+            if name is not None and name != not_name:
+                return name
+            if asyncio.get_event_loop().time() > deadline:
+                raise TimeoutError(
+                    f"no active mds on rank {rank} (have {name!r}, "
+                    f"excluded {not_name!r})")
+            await asyncio.sleep(0.05)
+
+    async def kill_mds(self, name: str):
+        """SIGKILL the MDS ``name`` (the supervisor respawns it as a new
+        incarnation, a standby). Returns the zombie: a client under the
+        killed incarnation's RADOS identity, opened before the kill, whose
+        late writes to its rank's journal must bounce off the blocklist
+        as the dead process's would (``ident``, ``ioctx``,
+        ``journal_oid``, ``name``)."""
+        from types import SimpleNamespace
+
+        from ceph_tpu_torch.cephfs.mds import journal_oid
+        from ceph_tpu_torch.rados import Rados
+        ret, _, out = await self.client.mon_command({"prefix": "fs dump"})
+        assert ret == 0
+        info = next(r for r in json.loads(out)["ranks"] if r["name"] == name)
+        r = Rados(self.monmap, name=info["ident"], keyring=self.keyring,
+                  config=self.cfg, device=self.device)
+        self._zombies.append(r)
+        await r.connect()
+        zombie = SimpleNamespace(
+            name=name, ident=info["ident"],
+            ioctx=await r.open_ioctx(self.fs_pool),
+            journal_oid=journal_oid(info["rank"]))
+        self.kill_daemon(f"mds.{name}")
+        return zombie
+
+    async def revive_mds(self, name: str) -> None:
+        """Boot a FRESH incarnation of ``mds.<name>`` (new pid, so a new
+        gid and identity): the old process stops first if it still
+        runs, as a removed MDS does after ``mds fail``."""
+        child = self.children[f"mds.{name}"]
+        if child.proc is not None and child.proc.returncode is None:
+            await self.stop_daemon(child.name)
+        await self.revive_daemon(child.name)
+
+    async def revive_daemon(self, name: str) -> None:
+        """Start a stopped child again, with its own arguments, under
+        the supervisor."""
+        child = self.children[name]
+        child.desired = "run"
+        await self._exec(child)
+        if child.watcher is None or child.watcher.done():
+            child.watcher = asyncio.ensure_future(self._watch(child))
+
     # -- waiting (all over the wire: the parent has no daemon objects) -----
     async def wait_for_clean(self, timeout: float = 60.0) -> None:
         deadline = asyncio.get_event_loop().time() + timeout
@@ -465,6 +540,8 @@ class ProcCluster:
             await self.asok.stop()
         if self.client:
             await self.client.shutdown()
+        for r in self._zombies:
+            await r.shutdown()
         order = ("mds.", "mgr.", "osd.", "mon.")
         for prefix in order:
             batch = [c for n, c in self.children.items()

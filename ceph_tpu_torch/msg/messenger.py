@@ -21,13 +21,15 @@ architecture mapped onto asyncio instead of epoll threads:
 The reference's throttles (Policy::throttler_bytes) become a bytes
 semaphore gating dispatch of incoming messages.
 
-The port's copy of ``ceph_tpu/msg/messenger.py``, with two changes:
+The port's copy of ``ceph_tpu/msg/messenger.py``, with three changes:
 each ``Messenger`` counts the frames and bytes it sends and receives
-after the handshake (``Messenger.wire``), and a handshake that finishes
+after the handshake (``Messenger.wire``); a handshake that finishes
 after ``shutdown`` began is closed instead of registered (the
-reference's registers it, and the session outlives its messenger). The
-wire format is the reference's, so the two packages' messengers talk to
-each other.
+reference's registers it, and the session outlives its messenger); and
+a peer that closes the connection during the client's handshake raises
+``ConnectionError_``, which callers retry, where the reference lets
+``IncompleteReadError`` through. The wire format is the reference's, so
+the two packages' messengers talk to each other.
 """
 
 from __future__ import annotations
@@ -589,6 +591,15 @@ class Messenger:
                 self._client_handshake_inner(reader, writer, addr,
                                              peer_name),
                 timeout=self.handshake_timeout)
+        except asyncio.IncompleteReadError as e:
+            # the peer closed mid-handshake (its own handshake timed out
+            # on a busy loop): a connection failure its callers retry.
+            # The reference lets the EOF through, and an objecter op
+            # that meets it fails (ROADMAP Queue C)
+            writer.close()
+            raise ConnectionError_(
+                f"{peer_name} closed the connection during the "
+                f"handshake") from e
         except BaseException:
             writer.close()
             raise

@@ -119,31 +119,48 @@ class WALDB(MemDB):
     tail (the crash-consistency contract of a RocksDB WAL, ref:
     src/kv/RocksDBStore.cc submit_transaction_sync + BlueFS replay).
 
-    A WAL past ``compact_threshold`` is compacted in a background thread,
-    as RocksDB flushes and compacts off the write path: the thread writes
-    the table as it stood at the trigger into a new snapshot, then copies
-    the WAL's later records into a fresh WAL, which a later batch (or
+    A WAL past ``compact_threshold`` and past the snapshot that the last
+    compaction wrote is compacted in a background thread, as RocksDB
+    flushes and compacts off the write path: the thread writes the table
+    as it stood at the trigger into a new snapshot, then copies the WAL's
+    later records into a fresh WAL, which a later batch (or
     ``compact``/``close``) swaps in. Every file state on the way replays
     to the same table, because replaying records that a snapshot already
     holds leaves it unchanged (each op sets, removes or drops a prefix:
     the last op on a key decides it). The files are those that a
     synchronous compaction at the same point writes.
+
+    Two rules keep compaction's writes from stalling the foreground
+    fsync of a batch. The trigger grows with the table, as Redis
+    rewrites its append-only file only once it has doubled
+    (``auto-aof-rewrite-percentage 100`` over ``auto-aof-rewrite-min-size``):
+    rewriting the whole table costs at most the bytes that the WAL took
+    since, where a fixed threshold rewrites a large table after every
+    ``compact_threshold`` bytes of small batches. And the writer syncs
+    every ``bytes_per_sync`` bytes (RocksDB's option of that name), so the
+    disk never holds a whole snapshot of unwritten pages for a batch's
+    fsync to wait behind.
     """
 
     SNAPSHOT = "snapshot.kv"
     WAL = "wal.kv"
 
-    def __init__(self, path: str, compact_threshold: int = 64 << 20):
+    def __init__(self, path: str, compact_threshold: int = 64 << 20,
+                 bytes_per_sync: int = 4 << 20):
         super().__init__()
         self.path = path
         self.compact_threshold = compact_threshold
+        self.bytes_per_sync = bytes_per_sync
         os.makedirs(path, exist_ok=True)
         self._replayed_bytes = 0
         self._load()
+        snap = os.path.join(path, self.SNAPSHOT)
+        # the last compaction's snapshot: the WAL may grow to its size
+        self._base = os.path.getsize(snap) if os.path.exists(snap) else 0
         self._wal = open(os.path.join(path, self.WAL), "ab")
         self._durable = self._wal.tell()    # WAL bytes written and synced
         self._bg: threading.Thread | None = None   # a running compaction
-        self._bg_out: tuple = ()            # its (copied up to, error)
+        self._bg_out: tuple = ()    # its (copied up to, snapshot size, error)
 
     # -- framing -----------------------------------------------------------
     @staticmethod
@@ -201,7 +218,8 @@ class WALDB(MemDB):
         self._apply(t)
         if self._bg is not None and not self._bg.is_alive():
             self._finish_compaction()
-        if self._bg is None and self._wal.tell() > self.compact_threshold:
+        if self._bg is None and \
+                self._wal.tell() > max(self.compact_threshold, self._base):
             self._bg_out = ()
             self._bg = threading.Thread(
                 target=self._compact_job,
@@ -212,7 +230,7 @@ class WALDB(MemDB):
         """Write the whole table as one snapshot batch; reset the WAL
         (ref: RocksDB memtable flush / BlueStore DB compaction)."""
         self._wait_compaction()
-        self._write_snapshot(self._frozen())
+        self._base = self._write_snapshot(self._frozen())
         self._wal.close()
         self._wal = open(os.path.join(self.path, self.WAL), "wb")
         self._durable = 0
@@ -231,10 +249,11 @@ class WALDB(MemDB):
         finally:
             os.close(dfd)
 
-    def _write_snapshot(self, frozen: list) -> None:
+    def _write_snapshot(self, frozen: list) -> int:
         """The snapshot file: one record of a KVTransaction that sets every
         key, written piece by piece (the bytes of ``t.encode()``'s record,
-        without building it in memory), synced and renamed into place."""
+        without building it in memory), synced and renamed into place.
+        Returns its size."""
         tmp = os.path.join(self.path, self.SNAPSHOT + ".tmp")
         with open(tmp, "wb") as f:
             f.write(_HDR.pack(0))           # the length, filled in below
@@ -242,6 +261,7 @@ class WALDB(MemDB):
             head = head.tobytes()
             f.write(head)
             size, crc = len(head), zlib.crc32(head)
+            synced = 0
             for prefix, kvs in frozen:
                 for key, value in kvs:
                     op = Encoder().string("set").string(prefix).string(key)
@@ -250,6 +270,9 @@ class WALDB(MemDB):
                     f.write(value)
                     size += len(op) + len(value)
                     crc = zlib.crc32(value, zlib.crc32(op, crc))
+                    if size - synced >= self.bytes_per_sync:
+                        _sync(f)
+                        synced = size
             f.write(_HDR.pack(crc))
             f.seek(0)
             f.write(_HDR.pack(size))
@@ -261,6 +284,7 @@ class WALDB(MemDB):
         # truncation survives, dropping every transaction since the
         # previous snapshot. fsync the directory entry first.
         self._fsync_dir()
+        return size + 2 * _HDR.size
 
     def _compact_job(self, frozen: list, covered: int) -> None:
         """In the background: the snapshot of ``frozen`` (the table after
@@ -268,7 +292,7 @@ class WALDB(MemDB):
         ``covered`` copied into ``wal.kv.tmp`` while batches go on being
         appended; ``_finish_compaction`` copies the rest and swaps."""
         try:
-            self._write_snapshot(frozen)
+            base = self._write_snapshot(frozen)
             wal = os.path.join(self.path, self.WAL)
             pos = covered
             with open(wal, "rb") as src, open(wal + ".tmp", "wb") as dst:
@@ -276,18 +300,18 @@ class WALDB(MemDB):
                     end = self._durable
                     if end - pos <= 1 << 20:
                         break
-                    pos = _copy(src, dst, pos, end)
+                    pos = _copy(src, dst, pos, end, self.bytes_per_sync)
                 dst.flush()
                 os.fsync(dst.fileno())
-            self._bg_out = (pos, None)
+            self._bg_out = (pos, base, None)
         except BaseException as e:          # raised on the caller's side
-            self._bg_out = (covered, e)
+            self._bg_out = (covered, self._base, e)
 
     def _finish_compaction(self) -> None:
         """On the caller's side once the job has ended: the WAL's newest
         records after it, then the fresh WAL in place of the old."""
         self._bg = None
-        pos, err = self._bg_out
+        pos, self._base, err = self._bg_out
         if err is not None:
             raise err
         wal = os.path.join(self.path, self.WAL)
@@ -311,11 +335,20 @@ class WALDB(MemDB):
         self._wal.close()
 
 
-def _copy(src, dst, start: int, end: int, chunk: int = 8 << 20) -> int:
-    """Bytes ``[start, end)`` of the file ``src`` appended to ``dst``."""
+def _copy(src, dst, start: int, end: int, chunk: int = 4 << 20) -> int:
+    """Bytes ``[start, end)`` of the file ``src`` appended to ``dst``,
+    synced every ``chunk`` bytes."""
     src.seek(start)
     while start < end:
         buf = src.read(min(chunk, end - start))
         dst.write(buf)
+        _sync(dst)
         start += len(buf)
     return end
+
+
+def _sync(f) -> None:
+    """``f``'s written bytes to the disk (``bytes_per_sync``'s step; the
+    file's metadata waits for the final fsync)."""
+    f.flush()
+    os.fdatasync(f.fileno())

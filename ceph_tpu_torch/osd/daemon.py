@@ -16,7 +16,7 @@ delta remaps run the CRUSH kernel on it, and every ``ECPG`` it hosts,
 with the residency cache, encodes and decodes there. The pool's EC
 profile, which is cluster state, never names the device. The reference's
 boot-time device mesh (``osd_crush_mesh=auto``) is not attached: the
-sharded sweep waits for the multi-device port (ROADMAP Queue A item 3).
+sharded sweep waits for the multi-device port (ROADMAP Queue A, multi-device).
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def _boot_crush_mesh(cfg: dict, device) -> None:
     """The ``osd_crush_mesh`` knob: ``auto`` would attach a mesh over
     every visible card to the tracked table when more than one is
     visible, so full-pool sweeps run sharded. The port has no sharded
-    sweep yet (ROADMAP Queue A item 3), so this returns None: ``off``
+    sweep yet (ROADMAP Queue A, multi-device), so this returns None: ``off``
     and one card need no mesh, and ``auto`` on more than one card logs
     that it keeps the single-card path."""
     if str(cfg.get("osd_crush_mesh", "off")) != "auto":
@@ -80,7 +80,7 @@ def _boot_crush_mesh(cfg: dict, device) -> None:
     if n > 1:
         log.dout(0, f"osd_crush_mesh=auto: {n} cards visible, but the "
                     "sharded sweep waits for the multi-device port "
-                    "(ROADMAP Queue A item 3) -- keeping the "
+                    "(ROADMAP Queue A, multi-device) -- keeping the "
                     "single-card path")
     return None
 

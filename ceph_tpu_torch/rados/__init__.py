@@ -13,6 +13,7 @@ its ``MonClient`` decodes the maps the objecter targets by there.
 
 from __future__ import annotations
 
+import asyncio
 import json
 
 import itertools
@@ -56,7 +57,6 @@ class _WatchDispatcher(Dispatcher):
             except Exception:
                 pass
             # ack so the notifier's collection completes
-            import asyncio
             asyncio.ensure_future(ioctx._op(oid, [
                 (OSD_OP_NOTIFY_ACK, msg.notify_id, msg.cookie, "", b"")]))
         return True
@@ -95,11 +95,34 @@ class Rados:
 
     async def pool_create(self, name: str, pg_num: int = 32,
                           **kw) -> None:
+        """Create the pool, and return once this client's own osdmap
+        holds it, so an ``open_ioctx`` right after finds it. Ceph's
+        Objecter holds a pool op's completion until the client has the
+        map of the reply's epoch (``Objecter::handle_pool_op_reply``);
+        the reference returns on the mon's reply, and its next
+        ``open_ioctx`` can raise ``no pool``. The wait is bounded by the
+        objecter's op timeout."""
         ret, rs, _ = await self.mon_command(
             dict({"prefix": "osd pool create", "pool": name,
                   "pg_num": pg_num}, **kw))
         if ret != 0:
             raise ObjectOperationError(ret, rs)
+        loop = asyncio.get_event_loop()
+        deadline = loop.time() + self.objecter.op_timeout
+        osdmap = self.monc.osdmap
+        while osdmap is None or \
+                all(p.name != name for p in osdmap.pools.values()):
+            left = deadline - loop.time()
+            if left <= 0:
+                raise ObjectOperationError(
+                    -110, f"pool {name!r} created, but this client's "
+                          f"osdmap never held it")
+            try:
+                osdmap = await self.monc.wait_for_osdmap(
+                    min_epoch=1 if osdmap is None else osdmap.epoch + 1,
+                    timeout=left)
+            except TimeoutError:
+                osdmap = self.monc.osdmap
 
     async def pool_delete(self, name: str) -> None:
         ret, rs, _ = await self.mon_command(

@@ -70,8 +70,8 @@ drives the same API from a seeded schedule. Determinism: a seeded injector draws
 its own ``random.Random``, so a fixed seed and a fixed message
 sequence reproduce the same fault decisions.
 
-The port's copy of ``ceph_tpu/sim/faults.py``; the Thrasher is not
-ported yet (ROADMAP Queue A item 4).
+The port's copy of ``ceph_tpu/sim/faults.py``; the port's Thrasher
+(``sim/thrasher.py``) drives it.
 """
 
 from __future__ import annotations

@@ -299,7 +299,7 @@ Gateway"), SigV4 users on:
    and its bytes; a presigned GET; a ``public-read`` object's anonymous
    GET (a private one's is refused).
 58. Two ``CephFSClient``s on the card (keys in the conf), IO500's
-   mdtest-easy at 512 empty files per client in a directory of its own:
+   mdtest-easy at 256 empty files per client in a directory of its own:
    creates, with ``ceph_cli mds fail <active>`` started with them (each
    client's last 64 creates wait for it), so the standby takes rank 0
    and the clients reconnect and replay; every acknowledged file listed
@@ -315,6 +315,48 @@ Gateway"), SigV4 users on:
    JSON line gives the S3 and CephFS rates, the failover and reconnect
    seconds, the MDSs' start-up and worst loop stall, and both kernels'
    launches and CUDA-event ms by process kind and step.
+
+Then the load generator and the Thrasher's storms (``storm_path``,
+steps 62-67 of ``rbd_path_phase``, on the same cluster after
+``fs_rgw_path``; its launches are those of steps labelled ``storm_*``,
+of its loadgen worker and of ``ec_bench``):
+
+62. The OSD that step 61 hard-stopped starts again; every PG clean.
+63. ``sim.loadgen.run_sharded`` with one worker process (a
+   ``sitecustomize`` hooks both kernels there) on the k=8 m=3 pool:
+   2,000 sessions of 2 ops (a 4 KiB write, then a read or a write), 64
+   sessions in flight over 8 ``Rados`` handles on the card; zero errors,
+   every op acked, every OSD's worst loop stall in it under the 3 s
+   heartbeat grace; ops/s and p50/p99.
+64. ``Thrasher.proc_storm`` on the k=8 m=3 pool: a writer keeps writing
+   while the last OSD, the lead mon and the active mgr are SIGKILLed in
+   turn and respawned, and the standby mgr's metrics fill again; zero
+   writer errors, every acked write read back bit-identical, the
+   cluster clean. No gray pass: the smoke's 3 s OSD heartbeat grace is
+   shorter than the ``OSD_SLOW`` confirm window (the CPU test runs it).
+65. ``Thrasher.mds_storm`` with ``fs_rgw_path``'s two CephFS clients,
+   after a fresh incarnation of the MDS that ``mds fail`` removed stands
+   by: the active is SIGKILLed while each client writes 10 files; a
+   standby active on rank 0 in time, zero writer errors, every acked
+   file read back, and the killed incarnation's late journal write
+   refused (-EBLOCKLISTED).
+66. The native ``ec_bench --plugin jax`` through the port's reverse shim
+   (``build/native_torch/libec_jax.so``, which embeds CPython; a
+   same ``sitecustomize`` hooks both kernels there and checks their
+   launches once ``ec_bench`` destroys the plugin, after its timed loop):
+   an encode of 262,144 bytes and a decode of 2 erasures at k=8 m=3,
+   each with ``--verify``.
+67. ``utils.checkpoint.resumable_sweep`` of the canonical 10,240-OSD map
+   on the card, 2^22 PGs in chunks of 2^20, stopped after two chunks;
+   ``crush_sweep --checkpoint --profile`` resumes it from the file, and
+   the saved counts equal one sweep of all the PGs (the trace's CUDA
+   kernel events are counted).
+   Elections only during the lead mon's SIGKILL, markdowns only of the
+   SIGKILLed OSD, one mgr promotion (the survivor's) and one change of
+   rank 0's holder. One ``storm_path`` JSON line gives the loadgen
+   report, both storms' summaries, ec_bench's seconds and MB/s, the
+   resumed sweep's record, and both kernels' launches by process kind
+   and step.
 
 Last: one JSON line listing both kernels, then the card from
 nvidia-smi, then the last line ``{"ok": true, "device": {...}}``.
@@ -569,19 +611,21 @@ def main() -> None:
         cluster = osd_cluster_path_phase(card, pool)
         mark("osd_cluster_path")
     rbd = rbd_path_phase(card)
-    fs = rbd.pop("fs_rgw")
-    mark("fs_rgw_path")
+    fs, storm = rbd.pop("fs_rgw"), rbd.pop("storm")
+    mark("storm_path")
     crush["launches_by_path"] = {"crush_main": crush["launches"],
                                  "placement_epochs": placement_launches,
                                  "mon_path": mon_launches,
                                  "osd_cluster_path": cluster["crush"][0],
                                  "rbd_path": rbd["crush"][0],
-                                 "fs_rgw_path": fs["crush"][0]}
+                                 "fs_rgw_path": fs["crush"][0],
+                                 "storm_path": storm["crush"][0]}
     crush["launches"] += placement_launches + mon_launches + \
-        cluster["crush"][0] + rbd["crush"][0] + fs["crush"][0]
+        cluster["crush"][0] + rbd["crush"][0] + fs["crush"][0] + \
+        storm["crush"][0]
     crush["max_abs_err"] = max(crush["max_abs_err"], mon_worst,
                                cluster["crush"][1], rbd["crush"][1],
-                               fs["crush"][1])
+                               fs["crush"][1], storm["crush"][1])
     by_path = {"encode_decode": launches}
     plane_launches, err_plane = ec_plane_phases(ec, enc_bm, dec_bm, card,
                                                 spec)
@@ -596,6 +640,7 @@ def main() -> None:
     by_path["osd_cluster_path"] = cluster["gf"][0]
     by_path["rbd_path"] = rbd["gf"][0]
     by_path["fs_rgw_path"] = fs["gf"][0]
+    by_path["storm_path"] = storm["gf"][0]
     print(f"gf_encode launches by path: {json.dumps(by_path)}")
 
     # -- result ----------------------------------------------------------------
@@ -607,7 +652,8 @@ def main() -> None:
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
         "max_abs_err": max(err_enc, err_dec, err_plane, err_obj, err_pg,
-                           cluster["gf"][1], rbd["gf"][1], fs["gf"][1]),
+                           cluster["gf"][1], rbd["gf"][1], fs["gf"][1],
+                           storm["gf"][1]),
         "ms": enc_ms,
         "plain_ms": plain_enc_ms,
         "bound_ms": enc_bound_s * 1e3,
@@ -3758,7 +3804,8 @@ def proc_child(argv: list) -> None:
         return ok
     pg_mod.PG.apply_push = apply_push
     logs = {}
-    lag = {"max_s": 0.0, "at": None, "over_half_s": 0, "worst": []}
+    lag = {"max_s": 0.0, "at": None, "over_half_s": 0, "worst": [],
+           "by_step": {}}
     # the stores' fsyncs (WALStore and the mons' store sync each commit)
     fsyncs = {"n": 0, "s": 0.0, "max_s": 0.0}
     real_fsync = os.fsync
@@ -3804,6 +3851,8 @@ def proc_child(argv: list) -> None:
             await asyncio.sleep(0.05)
             late = loop.time() - t0 - 0.05
             lag["over_half_s"] += late > 0.5
+            step = str(logs["gf"].label)
+            lag["by_step"][step] = max(lag["by_step"].get(step, 0.0), late)
             if late > lag["max_s"]:
                 lag["max_s"], lag["at"] = late, logs["gf"].label
             if late > 0.5:
@@ -4063,6 +4112,10 @@ def proc_child(argv: list) -> None:
     with GfLaunchLog(gkern) as glog, StepLaunchLog(ckern) as clog, \
             FlushLog() as flog:
         logs.update(gf=glog, crush=clog, flush=flog)
+        # a child (re)spawned in the middle of a phase starts under the
+        # parent's current step, so its first launches are filed there
+        for lg in logs.values():
+            lg.label = os.environ.get("CHIP_SMOKE_LABEL")
         proc.main(argv)
 
 
@@ -4090,6 +4143,8 @@ def smoke_cluster(child_log, here: str, on_cpu=("mon.",), clients=()):
     from ceph_tpu_torch.cluster.proc import ProcCluster
 
     class SmokeCluster(ProcCluster):
+        smoke_label = None      # the parent's current step
+
         async def start(self):
             for name in clients:
                 self.keyring.add(name)
@@ -4110,6 +4165,8 @@ def smoke_cluster(child_log, here: str, on_cpu=("mon.",), clients=()):
             env["PYTHONPATH"] = os.pathsep.join(
                 p for p in (here, env.get("PYTHONPATH")) if p)
             env["CHIP_SMOKE_SPAWNED"] = repr(time.time())
+            if self.smoke_label:
+                env["CHIP_SMOKE_LABEL"] = self.smoke_label
             # one CPU thread per daemon for torch's and numpy's host ops
             env["OMP_NUM_THREADS"] = env["MKL_NUM_THREADS"] = "1"
             # the mons and mgrs, which a deployment runs on hosts of
@@ -4774,7 +4831,9 @@ S3_INFLIGHT = 16                     # rados bench -t 16
 S3_MP, S3_PART = 64 << 20, 8 << 20   # S3's smallest part is 5 MiB
 S3_DEGRADED = 16                     # GETs after an OSD is hard-stopped
 S3_KILL = 4                          # the OSD hard-stopped
-MDT_FILES = 512                      # mdtest-easy files per client
+# mdtest-easy files per client, cut from 512 to hold the smoke's time
+# once storm_path joined it (512 files' creates and unlinks took ~100 s)
+MDT_FILES = 256
 MDT_AFTER_FAIL = 64                  # each client's creates after `mds fail`
 IOR_SIZE, IOR_XFER = 64 << 20, 4 << 20   # ior-easy per client, transfer
 
@@ -4797,15 +4856,9 @@ def cli_child(argv: list) -> None:
         glog.drain(f"{argv[0]} process")
         clog.drain(f"{argv[0]} process")
     with open(os.environ["CHIP_SMOKE_CLI_LOG"], "a") as f:
-        f.write(json.dumps({
-            "tool": argv[0], "rc": rc,
-            "label": os.environ.get("CHIP_SMOKE_CLI_LABEL"),
-            "gf": {"launches": glog.real.launches, "checked": glog.checked,
-                   "worst": glog.worst, "ms": sum(glog.ms.values())},
-            "crush": {"launches": clog.real.launches,
-                      "checked": clog.checked, "worst": clog.worst,
-                      "ms": sum(e["ms"] for e in clog.by_label.values())}})
-            + "\n")
+        f.write(json.dumps(dict(launch_record(
+            argv[0], os.environ.get("CHIP_SMOKE_CLI_LABEL"), glog, clog),
+            rc=rc)) + "\n")
     sys.exit(rc)
 
 
@@ -4886,10 +4939,10 @@ def rbd_path_phase(card: str) -> dict:
             return out
 
         async def label(step):
-            clog.label = step
+            clog.label = c.smoke_label = step
             await asyncio.gather(*[ask(n, {"prefix": "smoke label",
                                            "label": step})
-                                   for n in c.children])
+                                   for n in c.children if n not in dead])
 
         async def cli(tool, *words):
             """A CLI run as a user runs it, through ``--cli-child``;
@@ -5205,12 +5258,12 @@ def rbd_path_phase(card: str) -> dict:
             mark("rbd_path")
 
             # -- 55-61. the S3 gateway and CephFS (fs_rgw_path) ---------------
-            rec["fs_rgw"] = await fs_rgw_steps({
-                "c": c, "cl": cl, "card": card,
-                "rng": np.random.default_rng(SEED + 55), "label": label,
-                "ask": ask, "cli": cli, "wait_for": wait_for,
-                "collect": collect, "dead": dead,
-                "quiet": lambda at: quiet_of(second, at)})
+            fs_h = {"c": c, "cl": cl, "card": card,
+                    "rng": np.random.default_rng(SEED + 55), "label": label,
+                    "ask": ask, "cli": cli, "wait_for": wait_for,
+                    "collect": collect, "dead": dead,
+                    "quiet": lambda at: quiet_of(second, at)}
+            rec["fs_rgw"] = await fs_rgw_steps(fs_h)
             fs = rec["fs_rgw"]
             elections2 = await election_epochs()
             fs["elections"] = {n: (elections2[n] - elections1[n]) // 2
@@ -5226,6 +5279,15 @@ def rbd_path_phase(card: str) -> dict:
             require(pools == {"rbd_ec": RBD_EC_PGS, "rbd": RBD_REP_PGS,
                               FS_POOL: FS_PGS},
                     f"fs_rgw: pg_num changed: {pools}")
+            mark("fs_rgw_path")
+
+            # -- 62-67. loadgen and the Thrasher's storms (storm_path) -------
+            rec["storm"] = await storm_steps({
+                "c": c, "cl": cl, "card": card, "label": label, "ask": ask,
+                "wait_for": wait_for, "collect": collect, "dead": dead,
+                "events": events, "mgr_stats": mgr_stats,
+                "election_epochs": election_epochs, "here": here,
+                "fs_clients": fs_h["fs_clients"]})
             await collect([n for n in c.children if n not in dead])
         except BaseException:
             for n in list(c.children):
@@ -5255,16 +5317,21 @@ def rbd_path_phase(card: str) -> dict:
         clog.drain("rbd client")
 
     # -- the launches of every process, by path and kind --------------------
-    # fs_rgw_path's launches are those of its steps (labels fs_rgw_*) and
-    # every launch of an MDS process, which lives only in that phase
+    # storm_path's launches are those of its steps (labels storm_*), of its
+    # loadgen worker and of ec_bench; fs_rgw_path's those of its steps
+    # (labels fs_rgw_*) and every other launch of an MDS process
     def path_of(name, step):
+        if str(step).startswith("storm"):
+            return "storm_path"
         return "fs_rgw_path" if name.startswith("mds.") or \
             str(step).startswith("fs_rgw") else "rbd_path"
+    paths = ("rbd_path", "fs_rgw_path", "storm_path")
     children, stats = rec.pop("children"), rec.pop("stats")
     kinds = {path: {k: {"gf_encode": {"launches": 0, "ms": 0.0},
                         "crush_straw2": {"launches": 0, "ms": 0.0}}
-                    for k in ("mgr", "osd", "mds", "client", "cli")}
-             for path in ("rbd_path", "fs_rgw_path")}
+                    for k in ("mgr", "osd", "mds", "client", "cli",
+                              "loadgen", "ec_bench")}
+             for path in paths}
     for step, e in clog.by_label.items():
         k = kinds[path_of("client", step)]["client"]["crush_straw2"]
         k["launches"] += e["launches"]
@@ -5306,12 +5373,16 @@ def rbd_path_phase(card: str) -> dict:
                     rows)
     with open(cli_log) as f:
         clis = [json.loads(line) for line in f]
-    for one in clis:
+    storm = rec.pop("storm")
+    others = [("cli", one) for one in clis] + \
+        [("loadgen", storm["loadgen"]["worker"])] + \
+        [("ec_bench", e["launches"]) for e in storm["ec_bench"].values()]
+    for kind, one in others:
         for key, kern in (("gf", "gf_encode"), ("crush", "crush_straw2")):
             require(one[key]["checked"] == one[key]["launches"],
                     f"rbd: {one['tool']} checked {one[key]['checked']} of "
                     f"{one[key]['launches']} {kern} launches")
-            k = kinds[path_of("cli", one["label"])]["cli"][kern]
+            k = kinds[path_of(kind, one["label"])][kind][kern]
             k["launches"] += one[key]["launches"]
             k["ms"] += one[key]["ms"]
             worst[key] = max(worst[key], one[key]["worst"])
@@ -5383,12 +5454,14 @@ def rbd_path_phase(card: str) -> dict:
             fk: {k: v for k, v in by.items() if path_of("osd", k) ==
                  "rbd_path"} for fk, by in flushes.items()}),
         **rec,
-        "phase_s": time.perf_counter() - t_phase - fs["phase_s"],
+        "phase_s": time.perf_counter() - t_phase - fs["phase_s"] -
+        storm["phase_s"],
     }
     print("rbd_path: " + json.dumps(record))
     mds_stats = fs.pop("mds_stats")
-    mds_lag = {n: x["loop_lag"] for n, v in stats.items()
-               if n.startswith("mds.") for x in v[-1:]}
+    # the MDSs' stats as fs_rgw_path left them (read at its end, before
+    # storm_path's storms)
+    mds_lag = {n: v["loop_lag"] for n, v in mds_stats.items()}
     fs.update({
         "mds": {"start": fs.pop("mds_start"),
                 "worst_stall_s": max(x["max_s"] for x in mds_lag.values()),
@@ -5408,6 +5481,14 @@ def rbd_path_phase(card: str) -> dict:
         "cli": [one for one in clis
                 if path_of("cli", one["label"]) == "fs_rgw_path"]})
     print("fs_rgw_path: " + json.dumps(fs))
+    storm.update({
+        "launches_by_kind": kinds["storm_path"],
+        "gf_encode_by_step": {k: v for k, v in gf_by_step.items()
+                              if path_of("osd", k) == "storm_path"},
+        "flushes": flush_summary({
+            fk: {k: v for k, v in by.items() if path_of("osd", k) ==
+                 "storm_path"} for fk, by in flushes.items()})})
+    print("storm_path: " + json.dumps(storm))
     # -- the markdowns, elections and mgr failovers: only the phase's -------
     require(not rec["markdowns"], f"rbd: markdowns {rec['markdowns']}")
     require(not any(rec["elections_after_start"].values()),
@@ -5429,10 +5510,10 @@ def rbd_path_phase(card: str) -> dict:
             f"first active's and the phase's one failover")
     return {"gf": (totals["rbd_path"]["gf_encode"], worst["gf"]),
             "crush": (totals["rbd_path"]["crush_straw2"], worst["crush"]),
-            "fs_rgw": {
-                "gf": (totals["fs_rgw_path"]["gf_encode"], worst["gf"]),
-                "crush": (totals["fs_rgw_path"]["crush_straw2"],
-                          worst["crush"])}}
+            **{path[:-5]: {
+                "gf": (totals[path]["gf_encode"], worst["gf"]),
+                "crush": (totals[path]["crush_straw2"], worst["crush"])}
+               for path in ("fs_rgw_path", "storm_path")}}
 
 
 async def s3_request(port: int, method: str, target: str, body: bytes = b"",
@@ -5776,8 +5857,7 @@ async def fs_rgw_steps(h) -> dict:
         await fh.close()
         require(old == data[0][1] and head == new,
                 "fs_rgw: the snapshot does not read back the old bytes")
-        for fc in clients:
-            await fc.unmount()
+        h["fs_clients"] = clients         # storm_path's, then unmounted
 
         # -- 61. an OSD hard-stopped; degraded GETs ---------------------------
         await label("fs_rgw_degraded")
@@ -5834,6 +5914,419 @@ async def fs_rgw_steps(h) -> dict:
         "phase_s": time.perf_counter() - t_phase})
     return rec
 
+
+# -- the load generator and the Thrasher's storms (storm_path) ----------------
+# On rbd_path's cluster after fs_rgw_path: a rados-bench-like session fleet
+# through the port's loadgen, a seeded SIGKILL storm (qa's thrashosds on real
+# PIDs) and an MDS failover storm, then the native benchmark harness through
+# the port's reverse shim.
+# sessions, ops each (a write, then a read or a write); every OSD's worst
+# loop stall in it is gated below the heartbeat grace (at 2,000 sessions
+# an 8.8 s WAL fsync behind twelve whole-table compactions marked three
+# OSDs down once, before the WAL's compaction grew with the table)
+LG_SESSIONS, LG_OPS = 2000, 2
+LG_BYTES, LG_READS = 4096, 0.5         # 4 KiB writes; reads after a write
+LG_CLIENTS, LG_INFLIGHT = 8, 64        # Rados handles; sessions in flight
+STORM_WRITE_TIMEOUT = 30.0             # each storm write's deadline
+STORM_SETTLE = 180.0                   # clean again after the SIGKILLs
+MDS_STORM_WRITES = 10                  # files per client across the kill
+MDS_TAKEOVER = 60.0                    # a standby active on rank 0 within
+SHIM_SIZE, SHIM_ITERS = 262144, 16     # ec_bench --size, --iterations
+SWEEP_PGS, SWEEP_CHUNK = 1 << 22, 1 << 20   # crush_sweep --checkpoint
+STORM_LOG = "build/storm_path.log"     # the loadgen worker's and shim's
+# a process that a tool starts (the loadgen worker, ec_bench's embedded
+# interpreter) imports this at its start as ``sitecustomize`` when
+# ``storm_steps`` puts it on PYTHONPATH; ``site_hooks`` hooks it
+STORM_SITE = ("import os\n"
+              "if os.environ.get('CHIP_SMOKE_HOOK'):\n"
+              "    import chip_smoke\n"
+              "    chip_smoke.site_hooks()\n")
+LOADGEN_WORKER = ["-m", "ceph_tpu_torch.sim.loadgen", "--worker"]
+
+
+def launch_record(tool: str, label, glog, clog) -> dict:
+    """A process's launches of both kernels (``GfLaunchLog``,
+    ``StepLaunchLog``), checked, filed under the parent's step ``label``."""
+    return {"tool": tool, "label": label,
+            "gf": {"launches": glog.real.launches, "checked": glog.checked,
+                   "worst": glog.worst, "ms": sum(glog.ms.values())},
+            "crush": {"launches": clog.real.launches,
+                      "checked": clog.checked, "worst": clog.worst,
+                      "ms": sum(e["ms"] for e in clog.by_label.values())}}
+
+
+def site_hooks() -> None:
+    """Both kernels' checking hooks in a process that ``CHIP_SMOKE_HOOK``
+    names (``loadgen``: the loadgen worker, and no other process that
+    inherits the environment; ``ec_bench``: its embedded interpreter).
+    Launches wait, timed by CUDA events, until the tool is done with the
+    port (the worker exits; ``ec_bench`` destroys its plugin, after its
+    timed loop and ``--verify``, and never finalizes the interpreter):
+    then each is held against its plain version and the counts go as one
+    JSON line to the file ``CHIP_SMOKE_HOOK_LOG`` names."""
+    import atexit
+    import os
+    tool = os.environ["CHIP_SMOKE_HOOK"]
+    if tool == "loadgen" and sys.orig_argv[-3:] != LOADGEN_WORKER:
+        return
+    from ceph_tpu_torch.crush import kernels as ckern
+    from ceph_tpu_torch.gf import kernels as gkern
+    glog, clog = GfLaunchLog(gkern), StepLaunchLog(ckern)
+    glog.label = clog.label = os.environ["CHIP_SMOKE_LABEL"]
+    glog.__enter__()
+    clog.__enter__()
+
+    def finish():
+        try:
+            torch.cuda.synchronize()
+            glog.drain(tool)
+            clog.drain(tool)
+        finally:                # a launch left unchecked fails the parent
+            with open(os.environ["CHIP_SMOKE_HOOK_LOG"], "a") as f:
+                f.write(json.dumps(launch_record(tool, glog.label, glog,
+                                                 clog)) + "\n")
+    if tool == "loadgen":
+        atexit.register(finish)
+        return
+    from ceph_tpu_torch.interop import ec_shim
+
+    class Plugin:
+        """The plugin as the shim holds it: ``ec_bench``'s destroy drops
+        the one reference."""
+
+        def __init__(self, h):
+            self._h = h
+
+        def __getattr__(self, name):
+            return getattr(self._h, name)
+
+        def __del__(self):
+            finish()
+    real_create = ec_shim.create
+    ec_shim.create = lambda profile: Plugin(real_create(profile))
+
+
+def resumable_sweep_step(here: str, host_s: dict) -> dict:
+    """``utils.checkpoint.resumable_sweep`` of the canonical 10,240-OSD map
+    on the card, stopped after two chunks, then ``crush_sweep
+    --checkpoint --profile`` resumes it from the file; the saved counts
+    must equal one sweep of all the PGs. Returns the CLI's record and
+    the trace's CUDA kernel events (torch.profiler through CUPTI)."""
+    import os
+    import shutil
+
+    from ceph_tpu_torch.bench import crush_sweep
+    from ceph_tpu_torch.crush.mapper import Mapper
+    from ceph_tpu_torch.utils.checkpoint import SweepState, resumable_sweep
+    ckpt = os.path.join(here, "build", "storm_sweep.json")
+    trace_dir = os.path.join(here, "build", "storm_sweep_trace")
+    for stale in (ckpt, ckpt + ".tmp"):
+        if os.path.exists(stale):
+            os.remove(stale)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    cmap = crush_sweep.canonical_map()
+    mapper = Mapper(cmap, device="cuda")
+    t0 = time.perf_counter()
+    state, done = resumable_sweep(cmap, 0, SWEEP_PGS, 3, ckpt,
+                                  chunk=SWEEP_CHUNK, mapper=mapper,
+                                  max_chunks=2)
+    require(not done and state.cursor == 2 * SWEEP_CHUNK,
+            f"storm: the first run stopped at {state.cursor}")
+    res = crush_sweep.main(["--num-pgs", str(SWEEP_PGS), "--chunk",
+                            str(SWEEP_CHUNK), "--checkpoint", ckpt,
+                            "--profile", trace_dir, "--device", "cuda"])
+    host_s["sweep"] = time.perf_counter() - t0
+    counts, bad = mapper.sweep(0, 0, SWEEP_PGS, 3)
+    final = SweepState.load(ckpt)
+    require(res["done"] and res["cursor"] == SWEEP_PGS and
+            np.array_equal(final.counts, counts.cpu().numpy()) and
+            final.bad == int(bad),
+            f"storm: the resumed sweep {res} differs from one sweep")
+    (trace,) = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, trace)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return dict(res, trace_kernel_events=len(kernels),
+                trace_crush_events=sum("crush" in k for k in kernels))
+
+
+async def storm_steps(h) -> dict:
+    """The load generator and the Thrasher's storms on ``rbd_path``'s
+    running cluster (steps 62-67); ``h`` carries the phase's cluster,
+    client and helpers. Returns the phase's record; every check raises."""
+    import os
+    import site
+
+    from ceph_tpu_torch.interop import native
+    from ceph_tpu_torch.sim import Thrasher
+    from ceph_tpu_torch.sim.loadgen import run_sharded
+
+    c, cl, card, label = h["c"], h["cl"], h["card"], h["label"]
+    host_s, rec = {}, {}
+    t_phase = time.perf_counter()
+    log_path = os.path.join(h["here"], STORM_LOG)
+    if os.path.exists(log_path):
+        os.remove(log_path)
+
+    async def timed(what, coro):
+        t0 = time.perf_counter()
+        out = await coro
+        host_s[what] = time.perf_counter() - t0
+        print(f"[{card}] storm_path {what}: {host_s[what]:.3f} s", flush=True)
+        return out
+
+    async def fsmap():
+        return (await cl.status()).get("fsmap") or {}
+
+    site_dir = os.path.join(h["here"], "build", "storm_site")
+    os.makedirs(site_dir, exist_ok=True)
+    with open(os.path.join(site_dir, "sitecustomize.py"), "w") as f:
+        f.write(STORM_SITE)
+
+    def hooked(tool: str) -> dict:
+        """The environment under which ``site_hooks`` hooks a process of
+        ``tool``, whose record goes to ``<STORM_LOG>.<tool>``."""
+        log = f"{log_path}.{tool}"
+        if os.path.exists(log):
+            os.remove(log)
+        return {"CHIP_SMOKE_HOOK": tool, "CHIP_SMOKE_HOOK_LOG": log,
+                "CHIP_SMOKE_LABEL": f"storm_{tool}",
+                "PYTHONPATH": os.pathsep.join(
+                    [site_dir, h["here"], *site.getsitepackages(),
+                     *filter(None, [os.environ.get("PYTHONPATH")])])}
+
+    def hooked_record(tool: str) -> dict:
+        with open(f"{log_path}.{tool}") as f:
+            (one,) = [json.loads(line) for line in f]
+        return one
+
+    async def survey():
+        """What the storms may change only where they mean to: the mons'
+        election epochs, each mgr's promotions and demotions, the rank-0
+        MDS, the markdowns so far."""
+        return {"elections": await h["election_epochs"](),
+                "mgr_moves": {n: s["moves"] for n, s in
+                              (await h["mgr_stats"]()).items()},
+                "mds": (await fsmap()).get("active"),
+                "downs": [e for e in h["events"] if e[0] == "down"]}
+
+    # -- 62. the hard-stopped OSD back; clean -------------------------------
+    victim = f"osd.{S3_KILL}"
+    h["dead"].discard(victim)
+    c.smoke_label = "storm_revive"
+    t0 = time.perf_counter()
+    await c.revive_daemon(victim)
+    await c.wait_for_daemon_ready(victim, CL_DEADLINE)
+    await label("storm_revive")
+    await c.wait_for_osds_up(RBD_OSDS, CL_DEADLINE)
+    await c.wait_for_clean(CL_DEADLINE)
+    host_s["revive_to_clean"] = time.perf_counter() - t0
+    before = await survey()
+
+    # -- 63. loadgen: one worker process on the k=8 m=3 pool ----------------
+    await label("storm_loadgen")
+    # the worker inherits this process's environment while run_sharded runs
+    env = hooked("loadgen")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        report = await timed("loadgen", run_sharded(
+            c, "rbd_ec", sessions=LG_SESSIONS, workers=1,
+            clients=LG_CLIENTS, ops_per_session=LG_OPS,
+            write_bytes=LG_BYTES, read_fraction=LG_READS,
+            concurrency=LG_INFLIGHT, op_timeout=120.0, seed=SEED))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    worker = hooked_record("loadgen")
+    osds = [n for n in c.children if n.startswith("osd.")]
+    lags = await asyncio.gather(*[h["ask"](n, "smoke stats") for n in osds])
+    stalls = {n: x["loop_lag"]["by_step"].get("storm_loadgen", 0.0)
+              for n, x in zip(osds, lags)}
+    grace = c.cfg["osd_heartbeat_grace"]
+    print(f"[{card}] storm_path loadgen: the OSDs' worst loop stall "
+          f"{max(stalls.values()):.3f} s (grace {grace} s): {stalls}",
+          flush=True)
+    require(max(stalls.values()) < grace,
+            f"storm: an OSD's loop stalled past the {grace} s heartbeat "
+            f"grace in loadgen: {stalls}")
+    require(report["errors"] == 0 and
+            report["ops"] == LG_SESSIONS * LG_OPS,
+            f"storm: loadgen {report['ops']} ops, {report['errors']} errors "
+            f"{report['error_samples']}")
+    # its one-PG lookups are on the k=8 m=3 pool, whose `indep` rule the
+    # rule VM maps (the kernel takes straw2 `chooseleaf firstn` only): its
+    # crush_straw2 launches are those of any replicated-pool lookup
+    require(worker["gf"]["checked"] == worker["gf"]["launches"] and
+            worker["crush"]["checked"] == worker["crush"]["launches"],
+            f"storm: the loadgen worker's launches {worker}")
+    rec["loadgen"] = {k: report[k] for k in (
+        "sessions", "ops", "errors", "wall_s", "ops_per_s", "p50_ms",
+        "p99_ms", "max_ms")}
+    rec["loadgen"]["worker"] = worker
+    rec["loadgen"]["osd_worst_stall_s"] = max(stalls.values())
+    rec["loadgen"]["osd_stall_s"] = stalls
+    print(f"[{card}] storm_path loadgen: {json.dumps(rec['loadgen'])}",
+          flush=True)
+
+    # -- 64. proc_storm on the k=8 m=3 pool ----------------------------------
+    # no gray pass: the smoke's OSD heartbeat grace (3 s) is shorter than
+    # the OSD_SLOW confirm window, so a SIGSTOPped OSD is marked down before
+    # it shows as slow; tests/test_torch_storm_proc.py runs it at 10 s
+    await label("storm_proc")
+    first = f"osd.{c.n_osds - 1}"          # the storm SIGKILLs it
+    ec_io = await cl.open_ioctx("rbd_ec")
+    before_proc = await survey()
+    th = Thrasher(c, seed=SEED, write_timeout=STORM_WRITE_TIMEOUT)
+    # its launches so far; those of the writer's 0.5 s head start before
+    # the SIGKILL die with it unchecked and uncounted
+    await h["collect"]([first])
+    summary = await timed("proc_storm", th.proc_storm(
+        ec_io, settle_timeout=STORM_SETTLE, gray=False))
+    after_proc = await survey()
+    require(summary["failed_writes"] == 0 and summary["acked_writes"] > 0
+            and summary["killed_mons"] == 1 and
+            summary["mgr_failover"] is not None and
+            set(summary["restarts"]) >= {first},
+            f"storm: proc_storm {summary}")
+    rec["proc_storm"] = dict(summary, actions=th.actions_log)
+    await asyncio.gather(*[c.wait_for_daemon_ready(n, CL_DEADLINE)
+                           for n in c.children if n not in h["dead"]])
+    await label("storm_proc")
+
+    # -- 65. mds_storm with fs_rgw_path's two clients -------------------------
+    # the MDS that `mds fail` removed stopped serving: a fresh incarnation
+    # of it is the standby the storm's kill needs
+    await label("storm_mds")
+    mdss = [n for n in c.children if n.startswith("mds.")]
+    st = await fsmap()
+    stopped = next(n for n in mdss if n[4:] != st["active"])
+    await h["collect"]([stopped])         # its launches, before it stops
+    t0 = time.perf_counter()
+    await c.revive_mds(stopped[4:])
+    await c.wait_for_daemon_ready(stopped, CL_DEADLINE)
+
+    async def one_standby():
+        fm = await fsmap()
+        return fm.get("active") and fm.get("standby_count") == 1
+    await h["wait_for"](one_standby, "the revived MDS never stood by")
+    host_s["mds_revive"] = time.perf_counter() - t0
+    before_mds = await survey()
+    mth = Thrasher(c, seed=SEED + 1)
+    real_kill_mds = c.kill_mds
+
+    async def kill_mds(name):
+        # the victim's launches up to its kill (those of the zombie's
+        # connect, a moment, die with it unchecked and uncounted)
+        await h["collect"]([f"mds.{name}"])
+        return await real_kill_mds(name)
+    c.kill_mds = kill_mds
+    try:
+        mds = await timed("mds_storm", mth.mds_storm(
+            h["fs_clients"], writes=MDS_STORM_WRITES, files_before_kill=2,
+            takeover_timeout=MDS_TAKEOVER))
+    finally:
+        del c.kill_mds
+    require(mds["errors"] == 0 and len(mds["takeover_s"]) == 1 and
+            mds["acked_writes"] == len(h["fs_clients"]) * MDS_STORM_WRITES,
+            f"storm: mds_storm {mds}")
+    rec["mds_storm"] = dict(mds, actions=mth.actions_log)
+    for fc in h["fs_clients"]:
+        await fc.unmount()
+    await asyncio.gather(*[c.wait_for_daemon_ready(n, CL_DEADLINE)
+                           for n in mdss])
+    after_mds = await survey()
+
+    # -- 66. ec_bench through the port's reverse shim -------------------------
+    await label("storm_ec_bench")
+    build = await asyncio.get_running_loop().run_in_executor(
+        None, native.build_native_shim)
+    rec["ec_bench"] = {}
+    for workload, extra in (("encode", []),
+                            ("decode", ["--erasures", str(min(2, M))])):
+        env = dict(os.environ, **hooked("ec_bench"))
+        t0 = time.perf_counter()
+        proc = await asyncio.create_subprocess_exec(
+            str(build / "ec_bench"), "--plugin", "jax", "--dir", str(build),
+            "--workload", workload, "--size", str(SHIM_SIZE),
+            "--iterations", str(SHIM_ITERS), "--parameter", f"k={K}",
+            "--parameter", f"m={M}", "--verify", *extra, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        out, err = await proc.communicate()
+        host_s[f"ec_bench_{workload}"] = time.perf_counter() - t0
+        err = err.decode(errors="replace")
+        require(proc.returncode == 0 and "verify: ok" in err,
+                f"storm: ec_bench {workload} exited {proc.returncode}: "
+                f"{err[-1500:]}")
+        launched = hooked_record("ec_bench")
+        require(launched["gf"]["launches"] > 0 and
+                launched["gf"]["checked"] == launched["gf"]["launches"],
+                f"storm: ec_bench {workload} launched {launched}")
+        secs, mbs = out.decode().split()
+        rec["ec_bench"][workload] = {"seconds": float(secs),
+                                     "MB_per_s": float(mbs),
+                                     "launches": launched}
+    print(f"[{card}] storm_path ec_bench: {json.dumps(rec['ec_bench'])}",
+          flush=True)
+
+    # -- 67. a resumable CRUSH sweep: two chunks, then crush_sweep resumes --
+    await label("storm_sweep")
+    rec["sweep"] = resumable_sweep_step(h["here"], host_s)
+    print(f"[{card}] storm_path sweep: {json.dumps(rec['sweep'])}",
+          flush=True)
+    end = await survey()
+
+    # -- what the storms may change, and only where they mean to -------------
+    def changed(a, b):
+        return {n: (b["elections"][n] - a["elections"][n]) // 2
+                for n in a["elections"] if n in b["elections"]}
+    killed_mon = next(a.split()[1] for a in th.actions_log
+                      if a.endswith("(lead mon)"))
+    killed_mgr = summary["mgr_failover"][0]
+    rec["elections"] = {"before_storms": changed(before, before_proc),
+                        "proc_storm": changed(before_proc, after_proc),
+                        "after": changed(after_proc, end)}
+    require(not any(rec["elections"]["before_storms"].values()) and
+            not any(rec["elections"]["after"].values()) and
+            all(v >= 1 for n, v in rec["elections"]["proc_storm"].items()
+                if n != killed_mon),
+            f"storm: elections {rec['elections']}, want them only in the "
+            f"lead mon's SIGKILL")
+    downs = end["downs"][len(before["downs"]):]
+    rec["markdowns"] = downs
+    require({f"osd.{e[1]}" for e in downs} <= {first},
+            f"storm: markdowns {downs}, want at most {first}'s")
+    moves = {n: {k: end["mgr_moves"][n][k] - before["mgr_moves"][n][k]
+                 for k in ("promote", "demote")}
+             for n in before["mgr_moves"] if n != killed_mgr}
+    rec["mgr_moves"] = {"survivor": moves,
+                        "killed": [killed_mgr, end["mgr_moves"][killed_mgr]]}
+    require(all(m == {"promote": 1, "demote": 0} for m in moves.values())
+            and end["mgr_moves"][killed_mgr] == {"promote": 0, "demote": 0},
+            f"storm: mgr moves {rec['mgr_moves']}, want the survivor's one "
+            f"promotion")
+    require(before_mds["mds"] == before["mds"] and
+            after_mds["mds"] not in (None, before_mds["mds"]) and
+            end["mds"] == after_mds["mds"],
+            f"storm: rank 0 held by {before['mds']}, {before_mds['mds']}, "
+            f"{after_mds['mds']}, {end['mds']}")
+    rec.update({"card": card,
+                "layout": {"pool": "rbd_ec", "loadgen": {
+                    "sessions": LG_SESSIONS, "ops_per_session": LG_OPS,
+                    "write_bytes": LG_BYTES, "read_fraction": LG_READS,
+                    "clients": LG_CLIENTS, "in_flight": LG_INFLIGHT,
+                    "workers": 1},
+                    "proc_storm": {"write_timeout": STORM_WRITE_TIMEOUT,
+                                   "settle": STORM_SETTLE, "gray": False},
+                    "mds_storm": {"writes": MDS_STORM_WRITES, "kills": 1},
+                    "ec_bench": {"size": SHIM_SIZE,
+                                 "iterations": SHIM_ITERS}},
+                "host_s": host_s,
+                "phase_s": time.perf_counter() - t_phase})
+    return rec
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--proc-child"]:

@@ -13,7 +13,8 @@ packages) start again at 1 for each script, so the names agree.
 - tests/test_mds.py: namespace and session, journal replay, cap revoke
   between clients, cross opens, the create-on-open race, lease eviction
   with the blocklist;
-- tests/test_mds_failover.py without its Thrasher storms: ``kill -9``
+- tests/test_mds_failover.py without its Thrasher storms (those are in
+  ``test_torch_storm_mds.py``): ``kill -9``
   of the active under two writing clients with a cap held open (the
   storm's assertions, through ``vstart``'s ``kill_mds`` and
   ``wait_for_mds_active``), the single-daemon outage and the

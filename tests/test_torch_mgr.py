@@ -21,7 +21,7 @@
 - the ``DaemonStateIndex`` units and the CLI/schema cases of
   tests/test_telemetry.py;
 - tests/test_tuner.py's cases but the storm, which drives the Thrasher
-  (``sim/thrasher.py``, not ported yet);
+  and is in ``test_torch_storm_tuner.py``;
 - tests/test_mgr_scrub_tools.py's balancer, prometheus and autoscaler
   cases on a port ``Cluster(device="cpu")``;
 - prometheus's ``render()`` text equal to the reference's for one

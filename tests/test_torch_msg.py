@@ -429,3 +429,38 @@ def test_a_handshake_that_ends_after_shutdown(pkg):
         return registered
     got = asyncio.run(go())
     assert got == (1 if pkg == "reference" else 0)
+
+
+@pytest.mark.parametrize("pkg", ["reference", "port"])
+def test_a_peer_that_closes_during_the_handshake(pkg):
+    """A server whose own handshake times out (its loop busy, as an OSD's
+    under a burst of new clients) closes the socket while the client
+    still waits for its banner. The port's client raises
+    ``ConnectionError_``, which the objecter and the MonClient retry; the
+    reference's lets ``IncompleteReadError`` through, and an objecter op
+    that meets it fails (the errors of ``storm_path``'s first loadgen
+    run on the card)."""
+    mod = ref_msg if pkg == "reference" else port_msg
+
+    async def go():
+        server = mod.Messenger("osd.7")
+        server.handshake_timeout = 0.2
+        addr = await server.bind()
+
+        async def busy(reader, writer):
+            await asyncio.sleep(30)
+        server._server_handshake = busy
+        client = mod.Messenger("client.z")
+        try:
+            await asyncio.wait_for(client.connect(addr, "osd.7"), 5)
+        except Exception as e:
+            return e
+        finally:
+            await client.shutdown()
+            await server.shutdown()
+    err = asyncio.run(go())
+    if pkg == "reference":
+        assert isinstance(err, asyncio.IncompleteReadError), repr(err)
+    else:
+        assert isinstance(err, ConnectionError_), repr(err)
+        assert isinstance(err.__cause__, asyncio.IncompleteReadError)

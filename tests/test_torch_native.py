@@ -7,13 +7,15 @@ port's ``ErasureCodeTorch`` (on the CPU) and ceph_tpu's ``ErasureCodeRef``
 and ``ErasureCodeJax``, a decode agrees across backends, and
 ``plugin=ref`` round-trips a payload. It adds the registry's ``isa``
 branch: an RS or Cauchy profile gets the native backend with
-``independent=True``. The port builds only ``libec_ref.so``, into
-``build/native_torch/``. Skips when make or g++ is missing, as the
-reference's file does. Everything is integer, so the tolerance is
-equality.
+``independent=True``. The port builds into ``build/native_torch/`` only
+(the reverse shim's cases are in ``test_torch_ec_shim.py``). Skips when
+make or g++ is missing, as the reference's file does. Everything is
+integer, so the tolerance is equality.
 """
 
+import pathlib
 import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -123,11 +125,41 @@ def test_isa_takes_the_native_branch(built, rng, tech, native_tech):
                           torch_ec.encode_chunks(data))
 
 
+def _outputs(cmd: list) -> list:
+    """The paths a build command writes: each ``-o`` target and each
+    directory ``mkdir -p`` makes."""
+    words = cmd if isinstance(cmd, list) else cmd.split()
+    return [words[i + 1] for i, w in enumerate(words[:-1]) if w == "-o"] + \
+        (words[2:] if words[:2] == ["mkdir", "-p"] else [])
+
+
 def test_build_goes_to_the_ports_own_directory(built):
-    """Only libec_ref.so is built, into build/native_torch/: never the
-    reference's native/build/ and never the CPython shim."""
+    """The port's native builds go to build/native_torch/ under its lock:
+    libec_ref.so always, and where ``python3-config --embed`` exists the
+    registry, ec_bench and the reverse shim (``libec_jax.so``). Every
+    command of those builds writes there and nowhere else, so the
+    reference's native/build/ gains nothing from the port: make's full
+    dry run (``-n -B``, which writes nothing) and the shim's own command
+    are read for what they write. The test builds under the lock itself
+    and then looks, whichever worker built first."""
     assert built == native.native_build_dir()
     assert built.name == "native_torch" and built.parent.name == "build"
     assert (built / native.LIBRARY).exists()
-    assert not (built / "libec_jax.so").exists()
-    assert not (built / "libec_registry.so").exists()
+    targets = [native.LIBRARY]
+    flags = native.embed_flags()
+    if flags is not None:
+        assert native.build_native_shim() == built
+        targets += [*native.NATIVE_TARGETS, native.SHIM]
+        assert (built / native.SHIM).stat().st_mtime >= \
+            native.SHIM_SOURCE.stat().st_mtime
+    for name in targets:
+        assert (built / name).exists(), name
+    make = native.make_cmd(built, [t for t in targets if t != native.SHIM])
+    dry = subprocess.run(make[:1] + ["-n", "-B"] + make[1:], check=True,
+                         capture_output=True, text=True, timeout=60).stdout
+    written = [o for line in dry.splitlines() for o in _outputs(line)]
+    if flags is not None:
+        written += _outputs(native.shim_cmd(built, flags, built / "x"))
+    assert written and all(
+        pathlib.Path(native._NATIVE, w).resolve().is_relative_to(built)
+        for w in written), written

@@ -217,18 +217,21 @@ def table(db) -> dict:
 
 def test_waldb_threshold_compaction_files_match_reference(tmp_path):
     """With a small threshold, compaction runs many times over the batches:
-    once each has ended, the port's files equal ceph_tpu's, which compacts
-    in line at the same points; both packages reopen either directory to
-    the same table."""
-    dbs = {"jax": JaxWALDB(str(tmp_path / "jax"), compact_threshold=8 << 10),
-           "torch": WALDB(str(tmp_path / "torch"), compact_threshold=8 << 10)}
+    once each has ended, the port's files equal ceph_tpu's, compacted in
+    line at the same points (the port's trigger also waits for the WAL to
+    outgrow the last snapshot, so the reference is told where); both
+    packages reopen either directory to the same table."""
+    dbs = {"jax": JaxWALDB(str(tmp_path / "jax"), compact_threshold=1 << 40),
+           "torch": WALDB(str(tmp_path / "torch"), compact_threshold=8 << 10,
+                          bytes_per_sync=4 << 10)}
     started = 0
-    for ops in kv_batches(5, 120):
+    for ops in kv_batches(5, 300):
         for db in dbs.values():
             submit(db, ops)
         if dbs["torch"]._bg is not None:
             started += 1
             dbs["torch"]._bg.join()         # ended before the next batch
+            dbs["jax"].compact()
     assert started >= 5
     assert table(dbs["jax"]) == table(dbs["torch"])
     for db in dbs.values():
@@ -239,6 +242,47 @@ def test_waldb_threshold_compaction_files_match_reference(tmp_path):
             again = cls(str(tmp_path / name))
             assert table(again) == table(dbs["jax"])
             again.close()
+
+
+def test_waldb_compaction_waits_for_the_wal_to_outgrow_the_snapshot(
+        tmp_path, monkeypatch):
+    """A compaction starts once the WAL passes both the threshold and the
+    last snapshot's size, never before; the writer syncs every
+    ``bytes_per_sync`` bytes, and its snapshot is the file that one
+    written in one piece is."""
+    synced = []
+    real_sync = os.fdatasync
+    monkeypatch.setattr(os, "fdatasync",
+                        lambda fd: (synced.append(fd), real_sync(fd)))
+    path = str(tmp_path / "kv")
+    db = WALDB(path, compact_threshold=4 << 10, bytes_per_sync=8 << 10)
+    snap = os.path.join(path, WALDB.SNAPSHOT)
+    bases = []
+    for ops in kv_batches(7, 400):
+        limit = max(4 << 10, db._base)
+        before = db._wal.tell()
+        submit(db, ops)
+        assert (db._bg is not None) == (db._wal.tell() > limit), \
+            (before, db._wal.tell(), limit)
+        if db._bg is not None:
+            bases.append(db._base)
+            db._bg.join()
+            db.submit_transaction(db.get_transaction())   # swaps the WAL
+            assert db._bg is None and db._base == os.path.getsize(snap)
+    # the trigger rose with the table, past the threshold
+    assert len(bases) >= 3 and max(bases) > 4 << 10
+    assert len(synced) > 2 * len(bases)     # several syncs a snapshot
+    db.compact()
+    one = WALDB(str(tmp_path / "one"), bytes_per_sync=1 << 40)
+    one._write_snapshot(db._frozen())
+    assert open(os.path.join(str(tmp_path / "one"), WALDB.SNAPSHOT),
+                "rb").read() == open(snap, "rb").read()
+    one.close()
+    db.close()
+    for cls in (JaxWALDB, WALDB):
+        again = cls(path)
+        assert table(again) == table(db)
+        again.close()
 
 
 def test_waldb_compaction_leaves_the_write_path(tmp_path, monkeypatch):
@@ -255,7 +299,7 @@ def test_waldb_compaction_leaves_the_write_path(tmp_path, monkeypatch):
     def held(self, frozen):
         if threading.current_thread() is not threading.main_thread():
             assert gate.wait(30)
-        real(self, frozen)
+        return real(self, frozen)
     monkeypatch.setattr(WALDB, "_write_snapshot", held)
     path = tmp_path / "kv"
     db, mirror = WALDB(str(path), compact_threshold=16 << 10), MemDB()

@@ -11,8 +11,8 @@ re-advance the PG within that sleep and release the backoff early. Here
 every OSD first holds the leader's epoch and the PG is clean, and then
 the PG's ``advance`` is held until the test calls it itself.
 
-The overload storm cases wait for the Thrasher's port (ROADMAP Queue A
-item 4).
+The overload storm case, which drives the port's Thrasher, is in
+``tests/test_torch_storm_overload.py``.
 """
 
 import asyncio

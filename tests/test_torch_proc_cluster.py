@@ -13,16 +13,16 @@ The proc case shares one spawned cluster, as the reference's does:
      acknowledged write reads back; fault verbs answer on a child's
      admin socket.
 
-The reference's third phase is the Thrasher's storm with a mgr; the
-Thrasher waits for its port, and the proc mgr and mds children have
+The reference's third phase is the Thrasher's storm with a mgr, which
+is ``test_torch_storm_proc.py`` here; the proc mgr and mds children have
 cases of their own here (two mgrs, a SIGKILL of the active, the
 standby's takeover; ``start_fs`` with two MDSs, a SIGKILL of the active,
 the standby's takeover with a client's files intact). The reference's three mons were there for the storm's
 lead-mon kill, so the first case runs one (three mons
 started at once can elect two leaders, a reference fault the port keeps:
 ROADMAP Queue C). The reference case flakes on "no pool 't'" right after
-``pool_create``; here the client waits until its own map holds the
-pool.
+``pool_create``; the port's ``pool_create`` returns only once the
+client's own map holds the pool (pinned in ``test_torch_storm_proc.py``).
 """
 
 import asyncio
@@ -51,21 +51,6 @@ async def _osd_cfg(c, osd_id: int, name: str):
     return out.get(name)
 
 
-async def _wait_pool(client, name: str, timeout: float = 30.0) -> None:
-    """Until the client's own osdmap holds pool ``name``."""
-    deadline = asyncio.get_event_loop().time() + timeout
-    while True:
-        om = client.monc.osdmap
-        if om is not None and any(p.name == name
-                                  for p in om.pools.values()):
-            return
-        assert asyncio.get_event_loop().time() < deadline, \
-            f"the client's map never held pool {name!r}"
-        await client.monc.subscribe("osdmap",
-                                    (om.epoch + 1) if om else 0)
-        await asyncio.sleep(0.1)
-
-
 def test_proc_cluster_restarts_and_live_config():
     async def go():
         c = Cluster(n_mons=1, n_osds=3,
@@ -76,7 +61,6 @@ def test_proc_cluster_restarts_and_live_config():
         try:
             assert c.spawn_to_healthy_s is not None
             await c.client.pool_create("t", pg_num=16, size=3)
-            await _wait_pool(c.client, "t")
             await c.wait_for_clean(timeout=120)
             io = await c.client.open_ioctx("t")
             acked = {}
