@@ -30,6 +30,12 @@ the caller. Every call records the engine it ran on and the one expected
 with the process devmon (``utils.devmon``), so a degrade is a counted
 ``path_mismatch``.
 
+With a device mesh attached (``Mapper(mesh=)``, ``attach_mesh``),
+``map_pgs`` and ``sweep`` batches of at least ``mesh_min_batch`` lanes
+run sharded over its slots (``crush.sharded_sweep``; the path gains a
+``+sharded`` suffix). Each device the mesh names gets its own copy of
+the map tensors and kernel plans, made once and kept on this Mapper.
+
 All arithmetic is int64: 32-bit hash values are carried masked to
 32 bits (``crush.hash``), and the straw2 draw is the exact int64
 truncating division. Entry points run on CUDA unless ``device="cpu"``.
@@ -43,7 +49,7 @@ import time
 import numpy as np
 import torch
 
-from ceph_tpu_torch.crush import kernels
+from ceph_tpu_torch.crush import kernels, sharded_sweep
 from ceph_tpu_torch.crush.hash import (
     M32, hash32_2_t, hash32_3_t, hash32_4_t,
 )
@@ -631,7 +637,8 @@ class Mapper:
                  block: int | None = None,
                  choose_args: int | None = None,
                  device: str | torch.device | None = None,
-                 config: dict | None = None):
+                 config: dict | None = None,
+                 mesh=None, mesh_min_batch: int | None = None):
         self.device = devsel.resolve(device)
         self.map = crush_map
         self.packed: PackedMap = pack_map(crush_map)
@@ -656,7 +663,21 @@ class Mapper:
         self._quar_state: str | None = None  # quarantined|reprobing|permanent
         self._quar_failures = 0              # consecutive failures
         self._quar_next_probe = 0.0          # monotonic deadline
+        self.mesh = None
+        self.mesh_min_batch = sharded_sweep.MESH_MIN_BATCH
+        self.attach_mesh(mesh, mesh_min_batch)
         self.set_device_weights(device_weights)
+
+    def attach_mesh(self, mesh, mesh_min_batch: int | None = None) -> None:
+        """Route ``map_pgs``/``sweep`` batches of at least
+        ``mesh_min_batch`` lanes over ``mesh`` (None detaches)."""
+        self.mesh = mesh
+        if mesh_min_batch is not None:
+            self.mesh_min_batch = mesh_min_batch
+
+    def _use_mesh(self, n: int) -> bool:
+        return (self.mesh is not None and self.mesh.size > 1
+                and n >= self.mesh_min_batch)
 
     def set_device_weights(self, device_weights) -> None:
         """Replace the is_out reweight vector; kernel plans rebuild."""
@@ -669,13 +690,39 @@ class Mapper:
         _devmon().record_h2d(self.T.staged)
         _devmon().note_staging(self.T.staged)
         self._plans: dict[int, kernels.PlanTensors | None] = {}
+        # device -> (map tensors, plans) for each other device a mesh names
+        self._replicas: dict[torch.device, tuple] = {}
+
+    def _replica(self, device: torch.device) -> tuple:
+        """(map tensors, kernel plans by rule) on ``device``: this
+        Mapper's own on its device, else a copy made at the first use
+        there, kept until the weights change."""
+        if device == self.T.items.device:
+            return self.T, self._plans
+        rep = self._replicas.get(device)
+        if rep is None:
+            T = _MapTensors(self.packed, device, self.device_weights,
+                            self._cargs)
+            _devmon().record_h2d(T.staged)
+            rep = self._replicas[device] = (T, {})
+        return rep
 
     # -- engine selection ----------------------------------------------------
     def _steps(self, ruleno: int):
         return [(s.op, s.arg1, s.arg2) for s in self.map.rules[ruleno].steps]
 
-    def kernel_plan(self, ruleno: int) -> kernels.PlanTensors | None:
-        """The kernel's plan for this rule on this device, or None."""
+    def kernel_plan(self, ruleno: int,
+                    device: torch.device | None = None
+                    ) -> kernels.PlanTensors | None:
+        """The kernel's plan for this rule on ``device`` (default: this
+        Mapper's), or None."""
+        if device is not None and device != self.T.items.device:
+            plans = self._replica(device)[1]
+            if ruleno not in plans:
+                own = self.kernel_plan(ruleno)
+                plans[ruleno] = None if own is None else \
+                    kernels.plan_tensors(own.plan, device)
+            return plans[ruleno]
         if ruleno not in self._plans:
             plan = kernels.build_plan(self.map, ruleno, self.device_weights,
                                       self.choose_args_key)
@@ -864,16 +911,30 @@ class Mapper:
 
     def _vm_map(self, ruleno: int, x: torch.Tensor,
                 result_max: int) -> torch.Tensor:
-        return run_rule(self.T, self._steps(ruleno), self.map.tunables, x,
-                        result_max)
+        return run_rule(self._replica(x.device)[0], self._steps(ruleno),
+                        self.map.tunables, x, result_max)
 
-    def _kernel_map(self, ruleno: int, x: torch.Tensor, result_max: int,
-                    numrep: int) -> torch.Tensor:
-        pt = self.kernel_plan(ruleno)
-        leaves, bad = kernels.crush_straw2(pt, _as_i32(x), numrep)
+    def _engine_launch(self, ruleno, x, result_max, path):
+        """One block's device work up to its first host read: for the
+        kernel path the launch, giving (rows, flags) of which the flagged
+        lanes are still to recompute; other engines run whole (flags
+        None). Runs on the device ``x`` lies on."""
+        if path == "scalar":
+            return self._scalar_map(ruleno, x, result_max), None
+        if not path.startswith("kernel"):
+            return self._vm_map(ruleno, x, result_max), None
+        numrep = self._kernel_numrep(ruleno, result_max)
+        leaves, bad = kernels.crush_straw2(
+            self.kernel_plan(ruleno, x.device), _as_i32(x), numrep)
         out = torch.full((x.shape[0], result_max), ITEM_NONE,
                          dtype=torch.int64, device=x.device)
         out[:, :numrep] = leaves
+        return out, bad
+
+    def _engine_finish(self, ruleno, x, result_max, out, bad):
+        """The kernel's flagged lanes, recomputed by the rule VM."""
+        if bad is None:
+            return out
         flagged = bad.nonzero()[:, 0]
         if flagged.numel():
             self.flagged_lanes += int(flagged.numel())
@@ -881,12 +942,9 @@ class Mapper:
         return out
 
     def _engine_map(self, ruleno, x, result_max, path):
-        if path == "scalar":
-            return self._scalar_map(ruleno, x, result_max)
-        if path.startswith("kernel"):
-            return self._kernel_map(ruleno, x, result_max,
-                                    self._kernel_numrep(ruleno, result_max))
-        return self._vm_map(ruleno, x, result_max)
+        return self._engine_finish(ruleno, x, result_max,
+                                   *self._engine_launch(ruleno, x,
+                                                        result_max, path))
 
     def _map_block(self, ruleno, x, result_max, path,
                    fn_name: str = "crush_map_pgs"):
@@ -896,6 +954,19 @@ class Mapper:
         return _devmon().jit_call(
             fn_name, (path, self._devmon_token, ruleno, result_max),
             self._engine_map, ruleno, x, result_max, path)
+
+    def _map_round(self, ruleno, xs: list, result_max, path,
+                   fn_name: str) -> list:
+        """One block on each of several devices (a sharded tile round):
+        every block's device work is queued, through devmon's chokepoint
+        under one key for all of them, before any block's flags are read
+        back, so the devices run together."""
+        key = (path, self._devmon_token, ruleno, result_max)
+        launched = [_devmon().jit_call(fn_name, key, self._engine_launch,
+                                       ruleno, x, result_max, path)
+                    for x in xs]
+        return [self._engine_finish(ruleno, x, result_max, out, bad)
+                for x, (out, bad) in zip(xs, launched)]
 
     def _record_path(self, path: str, expected: str | None) -> str:
         """This call's engine: the ``last_map_path`` mirror, devmon's
@@ -924,20 +995,30 @@ class Mapper:
             self._maybe_reprobe(ruleno, result_max)
             _expected = self.expected_path(ruleno, result_max)
         path = self.mapping_path(ruleno, result_max)
-        block = self.effective_block(ruleno, result_max)
+        sharded = not scalar and self._use_mesh(x.shape[0])
         try:
-            pieces = [self._map_block(ruleno, x[lo:lo + block], result_max,
-                                      path)
-                      for lo in range(0, x.shape[0], block)]
+            if sharded:
+                out = sharded_sweep.sharded_map_pgs(self.mesh, self, ruleno,
+                                                    x, result_max)
+            else:
+                out = self._map_local(ruleno, x, result_max, path)
         except Exception as e:
             if not path.startswith("kernel"):
                 raise
-            self._disable_kernel("map_pgs", e)      # raises on the card
+            self._disable_kernel("sharded_map_pgs" if sharded else "map_pgs",
+                                 e)                  # raises on the card
             return self.map_pgs_path(ruleno, x, result_max,
                                      _expected=_expected)
-        out = torch.cat(pieces) if pieces else torch.full(
-            (0, result_max), ITEM_NONE, dtype=torch.int64, device=self.device)
+        if sharded:
+            path += "+sharded"
         return out.to(torch.int32), self._record_path(path, _expected)
+
+    def _map_local(self, ruleno, x, result_max, path) -> torch.Tensor:
+        block = self.effective_block(ruleno, result_max)
+        pieces = [self._map_block(ruleno, x[lo:lo + block], result_max, path)
+                  for lo in range(0, x.shape[0], block)]
+        return torch.cat(pieces) if pieces else torch.full(
+            (0, result_max), ITEM_NONE, dtype=torch.int64, device=self.device)
 
     def sweep(self, ruleno: int, start_x: int, n: int, result_max: int,
               device_counts_size: int | None = None):
@@ -959,25 +1040,46 @@ class Mapper:
             self._maybe_reprobe(ruleno, result_max)
             _expected = self.expected_path(ruleno, result_max)
         path = self.mapping_path(ruleno, result_max)
+        sharded = not scalar and device_counts_size is None and \
+            self._use_mesh(n)
+        try:
+            if sharded:
+                counts, bad = sharded_sweep.sharded_sweep(
+                    self.mesh, self, ruleno, start_x, n, result_max)
+            else:
+                counts, bad = self._sweep_local(ruleno, start_x, n,
+                                                result_max, nd, path)
+        except Exception as e:
+            if not path.startswith("kernel"):
+                raise
+            self._disable_kernel("sharded_sweep" if sharded else "sweep",
+                                 e)                  # raises on the card
+            return self.sweep_path(ruleno, start_x, n, result_max,
+                                   device_counts_size, _expected=_expected)
+        if sharded:
+            path += "+sharded"
+        return counts, bad, self._record_path(path, _expected)
+
+    def _sweep_local(self, ruleno, start_x, n, result_max, nd, path):
         block = self.effective_block(ruleno, result_max)
         firstn = self.rule_is_firstn(ruleno)
         counts = torch.zeros(nd + 1, dtype=torch.int64, device=self.device)
         bad = torch.zeros((), dtype=torch.int64, device=self.device)
-        try:
-            for lo in range(0, n, block):
-                x = (torch.arange(lo, min(n, lo + block), dtype=torch.int64,
-                                  device=self.device) + start_x) & M32
-                w = self._map_block(ruleno, x, result_max, path,
-                                    "crush_sweep")
-                live = w != ITEM_NONE
-                flat = torch.where(live & (w < nd), w, nd).reshape(-1)
-                counts += torch.bincount(flat, minlength=nd + 1)
-                if firstn:
-                    bad += (live.sum(dim=1) < result_max).sum()
-        except Exception as e:
-            if not path.startswith("kernel"):
-                raise
-            self._disable_kernel("sweep", e)        # raises on the card
-            return self.sweep_path(ruleno, start_x, n, result_max,
-                                   device_counts_size, _expected=_expected)
-        return counts[:nd], bad, self._record_path(path, _expected)
+        for lo in range(0, n, block):
+            x = (torch.arange(lo, min(n, lo + block), dtype=torch.int64,
+                              device=self.device) + start_x) & M32
+            w = self._map_block(ruleno, x, result_max, path, "crush_sweep")
+            tally(counts, bad, w, nd, result_max, firstn)
+        return counts[:nd], bad
+
+
+def tally(counts: torch.Tensor, bad: torch.Tensor, w: torch.Tensor, nd: int,
+          result_max: int, firstn: bool) -> None:
+    """Add one block's rows ``w`` into ``counts`` ((nd + 1,): placements
+    per device, slot nd for ITEM_NONE and devices past nd) and ``bad``
+    (firstn rows shorter than result_max), on their device."""
+    live = w != ITEM_NONE
+    flat = torch.where(live & (w < nd), w, nd).reshape(-1)
+    counts += torch.bincount(flat, minlength=nd + 1)
+    if firstn:
+        bad += (live.sum(dim=1) < result_max).sum()

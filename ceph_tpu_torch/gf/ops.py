@@ -130,8 +130,13 @@ def encode_stripes(bitmatrix: torch.Tensor, lo: torch.Tensor,
     """Batched stripe encode: data (batch, k, C) uint8 -> (batch, m, C).
 
     Every stripe is independent; the ops take the batch as a leading
-    dimension, so no transpose is needed.
+    dimension, so no transpose is needed. ``backend="kernel"`` launches
+    the encode kernel (``kernels.gf_encode``: its plain version on the
+    CPU), the others are the plain torch products.
     """
+    if backend == "kernel":
+        from ceph_tpu_torch.gf import kernels
+        return kernels.gf_encode(bitmatrix, data)
     if backend == "bitmatmul":
         return gf_matmul_bitplanes(bitmatrix, data)
     if backend == "lut":

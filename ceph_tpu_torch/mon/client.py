@@ -9,9 +9,8 @@ sub_want/renew_subs; Objecter applies the maps).
 The port's copy of ``ceph_tpu/mon/client.py``. A ``MonClient`` decodes
 the maps it follows onto ``device`` (CUDA unless ``device="cpu"``; it
 raises without a card), so with ``track_mapping`` its table's sweeps and
-delta remaps run the CRUSH kernel there. The reference's
-``mapping_mesh`` (a sharded sweep) is left out: the port's
-``OSDMapMapping`` takes no mesh yet (ROADMAP Queue A, multi-device).
+delta remaps run the CRUSH kernel there; with ``mapping_mesh`` set, the
+table's full sweeps run sharded over that device mesh.
 """
 
 from __future__ import annotations
@@ -74,8 +73,10 @@ class MonClient(Dispatcher):
         # table instead of re-running the mapper every epoch
         self.track_mapping = False
         self._mapping = None
-        # optional Tracer for the tracked table (crush_sweep spans);
-        # the owning daemon sets it before the first tracked map
+        # optional extras for the tracked table: a device mesh (full
+        # sweeps go mesh-sharded) and a Tracer (crush_sweep spans); the
+        # owning daemon sets these before the first tracked map
+        self.mapping_mesh = None
         self.mapping_tracer = None
         # the owning daemon's DeviceRuntimeMonitor (round 14):
         # tracked-table sweeps record per-daemon kernel-path health
@@ -232,6 +233,7 @@ class MonClient(Dispatcher):
             if self._mapping is None:
                 from ceph_tpu_torch.osd.osdmap_mapping import OSDMapMapping
                 self._mapping = OSDMapMapping(
+                    mesh=self.mapping_mesh,
                     tracer=self.mapping_tracer,
                     devmon=self.mapping_devmon)
             self._mapping.update(self.osdmap)

@@ -14,9 +14,9 @@ device (``device=``, CUDA unless ``"cpu"``; it raises without a card):
 its ``MonClient`` decodes maps there, so the tracked table's sweeps and
 delta remaps run the CRUSH kernel on it, and every ``ECPG`` it hosts,
 with the residency cache, encodes and decodes there. The pool's EC
-profile, which is cluster state, never names the device. The reference's
-boot-time device mesh (``osd_crush_mesh=auto``) is not attached: the
-sharded sweep waits for the multi-device port (ROADMAP Queue A, multi-device).
+profile, which is cluster state, never names the device. With
+``osd_crush_mesh=auto`` and more than one card visible, the tracked
+table's full sweeps run sharded over a mesh of every card.
 """
 
 from __future__ import annotations
@@ -60,28 +60,27 @@ from ceph_tpu_torch.utils.throttle import MessageThrottle
 log = get_logger("osd")
 
 
-def _boot_crush_mesh(cfg: dict, device) -> None:
-    """The ``osd_crush_mesh`` knob: ``auto`` would attach a mesh over
-    every visible card to the tracked table when more than one is
-    visible, so full-pool sweeps run sharded. The port has no sharded
-    sweep yet (ROADMAP Queue A, multi-device), so this returns None: ``off``
-    and one card need no mesh, and ``auto`` on more than one card logs
-    that it keeps the single-card path."""
-    if str(cfg.get("osd_crush_mesh", "off")) != "auto":
+def _boot_crush_mesh(cfg: dict, device):
+    """Mesh provenance: the ``osd_crush_mesh`` knob decides where this
+    daemon's device mesh comes from. ``auto`` on the card builds a mesh
+    over every visible card when more than one is visible (one card, or
+    the CPU, keeps the plain path: the sharded sweep needs more than one
+    slot to be used); ``off`` (the default) never attaches one. Returns a
+    Mesh or None; a failed device probe gives None, since a mesh is an
+    optimization, never a boot dependency."""
+    if str(cfg.get("osd_crush_mesh", "off")) != "auto" or \
+            device.type != "cuda":
         return None
     try:
         import torch
-        n = torch.cuda.device_count() if device.type == "cuda" else 1
-    except Exception as e:
+        n = torch.cuda.device_count()
+        if n > 1:
+            from ceph_tpu_torch.parallel import make_mesh
+            return make_mesh([torch.device("cuda", i) for i in range(n)])
+    except RuntimeError as e:
         log.dout(0, "osd_crush_mesh=auto: device probe failed "
                     f"({type(e).__name__}: {str(e)[:120]}) -- "
                     "keeping the single-device path")
-        return None
-    if n > 1:
-        log.dout(0, f"osd_crush_mesh=auto: {n} cards visible, but the "
-                    "sharded sweep waits for the multi-device port "
-                    "(ROADMAP Queue A, multi-device) -- keeping the "
-                    "single-card path")
     return None
 
 
@@ -126,9 +125,10 @@ class OSD(Dispatcher):
         # anyway, so the (delta-updated) table replaces those mapper
         # runs rather than adding work
         self.monc.track_mapping = True
-        # mesh provenance: the registered osd_crush_mesh knob; no
-        # mesh is attached until the sharded sweep is ported
-        _boot_crush_mesh(cfg, self.device)
+        # mesh provenance: the registered osd_crush_mesh knob attaches
+        # the boot-time mesh to the tracked table, which re-attaches it
+        # to every map it updates against
+        self.monc.mapping_mesh = _boot_crush_mesh(cfg, self.device)
         self.monc.map_callbacks.append(self._on_osdmap)
         self.osdmap = None
         self.pgs: dict[str, PG] = {}

@@ -26,9 +26,10 @@ half over cached raw rows.
 
 Incrementals (``apply_incremental``) carry every field the reference's
 codec carries, the host-cluster state placement never reads included
-(addresses, up_thru, blocklist, flags, client QoS profiles). Left out:
-the device mesh (``attach_mesh``, ROADMAP Queue A). The CRUSH step runs
-on CUDA unless ``OSDMap(..., device="cpu")``.
+(addresses, up_thru, blocklist, flags, client QoS profiles). With a
+device mesh attached (``attach_mesh``), bulk sweeps of at least
+``mesh_min_batch`` PGs run sharded over it (``crush.sharded_sweep``).
+The CRUSH step runs on CUDA unless ``OSDMap(..., device="cpu")``.
 """
 
 from __future__ import annotations
@@ -90,6 +91,9 @@ PERF = (PerfCountersBuilder("osdmap")
                          "PGs delta-remapped by OSDMapMapping.update")
         .add_u64_counter("remap_full_sweeps",
                          "full-pool sweeps by OSDMapMapping.update")
+        .add_u64_counter("remap_sharded_sweeps",
+                         "full-pool sweeps served by the mesh-sharded "
+                         "sweep (crush.sharded_sweep)")
         .create_perf_counters())
 
 _PG_CACHE_MAX_BATCH = 16       # memo-cache only scalar-ish lookups;
@@ -187,6 +191,11 @@ class OSDMap:
         # epoch-keyed scalar memo + optional full-cluster table (module
         # docstring); the counters are per map and mirrored into PERF
         self._mapping = None
+        # optional device mesh: bulk sweeps route through
+        # crush.sharded_sweep; set by attach_mesh, re-attached by an
+        # OSDMapMapping(mesh=...) at every update
+        self._mesh = None
+        self._mesh_min_batch = None
         self._pg_cache: dict[tuple[int, int], tuple] = {}
         self._pg_cache_epoch = self.epoch
         self.mapping_cache_hits = 0
@@ -386,12 +395,23 @@ class OSDMap:
             return -1
         return None
 
+    def attach_mesh(self, mesh, mesh_min_batch: int | None = None) -> None:
+        """Route bulk mapping sweeps over a device mesh: this map's
+        Mappers, existing and future, get it (``crush.sharded_sweep``
+        serves batches of at least ``mesh_min_batch``)."""
+        self._mesh = mesh
+        self._mesh_min_batch = mesh_min_batch
+        for mp in self._mappers.values():
+            mp.attach_mesh(mesh, mesh_min_batch)
+
     def mapper(self, choose_args_key: int | None = None) -> Mapper:
         mp = self._mappers.get(choose_args_key)
         if mp is None:
             mp = Mapper(self.crush,
                         device_weights=self._device_weights(),
-                        choose_args=choose_args_key, device=self.device)
+                        choose_args=choose_args_key, device=self.device,
+                        mesh=self._mesh,
+                        mesh_min_batch=self._mesh_min_batch)
             self._mappers[choose_args_key] = mp
         return mp
 

@@ -60,10 +60,11 @@ ceph_tpu's table as well): after ``update``, every pool table is
 byte-identical to a from-scratch ``pg_to_crush_osds`` +
 ``_pipeline_from_crush`` sweep of the same map.
 
-Left out: the device mesh (``mesh``/``mesh_min_batch``, the sharded
-full sweep and its ``last_sharded_sweeps`` count; ROADMAP Queue A,
-multi-device). With a ``tracer`` every full-pool sweep emits a
-``crush_sweep`` span.
+With a device mesh (``mesh``/``mesh_min_batch``, attached to every map
+the table updates against) full-pool sweeps run sharded
+(``crush.sharded_sweep``), counted in ``last_sharded_sweeps`` and the
+``remap_sharded_sweeps`` perf counter. With a ``tracer`` every full-pool
+sweep emits a ``crush_sweep`` span.
 """
 
 from __future__ import annotations
@@ -93,9 +94,15 @@ class OSDMapMapping:
     """Per-pool pg->(raw CRUSH, up, up_primary, acting, acting_primary)
     arrays at one epoch, plus the snapshots the delta diff needs."""
 
-    def __init__(self, osdmap: OSDMap | None = None, tracer=None,
+    def __init__(self, osdmap: OSDMap | None = None, mesh=None,
+                 mesh_min_batch: int | None = None, tracer=None,
                  devmon=None):
         self.epoch = -1
+        # optional device mesh: attached to every map this table updates
+        # against, so full-pool sweeps (the crush-topology-change
+        # fallback) run the mesh-sharded sweep instead of one device
+        self.mesh = mesh
+        self.mesh_min_batch = mesh_min_batch
         # optional utils.tracing.Tracer: bulk sweeps emit a
         # `crush_sweep` span (n_pgs/path/n_devices tags) so sweep cost
         # shows up in `trace show` instead of as opaque mapper time
@@ -123,6 +130,7 @@ class OSDMapMapping:
         # last-update stats (bench/tests/asok)
         self.last_remap_pgs = 0
         self.last_full_sweep_pools = 0
+        self.last_sharded_sweeps = 0
         if osdmap is not None:
             self.update(osdmap)
 
@@ -168,9 +176,11 @@ class OSDMapMapping:
         pool = osdmap.pools[pid]
         seeds = np.arange(pool.pg_num, dtype=np.uint32)
         span = self.tracer.start_root(
-            "crush_sweep", tags={"n_pgs": int(pool.pg_num),
-                                 "pool": int(pid), "n_devices": 1},
-        ) if self.tracer is not None else None
+            "crush_sweep", tags={
+                "n_pgs": int(pool.pg_num), "pool": int(pid),
+                "n_devices": self.mesh.size if self.mesh is not None
+                else 1,
+            }) if self.tracer is not None else None
         path = expected = None
         ok = False
         try:
@@ -189,6 +199,9 @@ class OSDMapMapping:
             # expected-vs-actual (the devmon_expected_engine knob pins
             # the deployment contract; 'auto' trusts the plan)
             self.devmon.record_sweep(expected, path)
+        if path is not None and path.endswith("+sharded"):
+            PERF.inc("remap_sharded_sweeps")
+            self.last_sharded_sweeps += 1
         up, upp, acting, actp = osdmap._pipeline_from_crush(
             pool, seeds, craw, pps)
         t = _PoolTable()
@@ -274,6 +287,11 @@ class OSDMapMapping:
         diff allows it, full (per-pool) sweep fallback otherwise."""
         self.last_remap_pgs = 0
         self.last_full_sweep_pools = 0
+        self.last_sharded_sweeps = 0
+        if self.mesh is not None:
+            # decode-fresh maps (the mgr's, per fetch) never carry the
+            # mesh themselves; the table re-attaches it every update
+            osdmap.attach_mesh(self.mesh, self.mesh_min_batch)
         if self.epoch == osdmap.epoch and self._osd_weight is not None:
             # Same epoch as the last update: every placement mutation
             # bumps the epoch (OSDMap._dirty — the invariant the

@@ -14,9 +14,7 @@ spellings where an analog exists (``erasure_code_dir``,
 
 The port's copy of ``ceph_tpu/utils/config.py``. It registers every
 option of the reference with the same name, type, default, help and
-bounds, also the options only modules not yet ported read (the OSD
-daemon's ``osd_crush_mesh``; the port has no sharded sweep to attach
-yet), so ``config set`` validates alike in both packages.
+bounds, so ``config set`` validates alike in both packages.
 """
 
 from __future__ import annotations

@@ -29,14 +29,14 @@ plain version ``kernel-plain`` folded in, as ``pallas-interpret`` folds
 into ``pallas``), ``vm`` (the rule VM; ceph_tpu's ``xla``) and
 ``scalar``. The launch counters are ``launches_kernel``, ``launches_vm``
 and ``launches_scalar`` (ceph_tpu: ``launches_pallas``, ``launches_xla``,
-``launches_scalar``).
+``launches_scalar``); ``launches_sharded`` counts the launches of the
+mesh-sharded path (a ``+sharded`` path suffix) beside their engine's.
 
 The process singleton (``devmon()``, counter family ``device_runtime``,
 registered in the process collection) is what ``ec.torch_plugin``,
 ``ec.crc`` and ``crush.mapper`` report through.
 
-Left out for now: ``launches_sharded`` (the multi-device sweep is not
-ported). :meth:`DeviceRuntimeMonitor.attach_tracer` takes the owning
+:meth:`DeviceRuntimeMonitor.attach_tracer` takes the owning
 daemon's tracer: every first launch then emits one ``jit_compile`` span.
 """
 
@@ -152,6 +152,9 @@ class DeviceRuntimeMonitor:
             .add_u64_counter("launches_scalar",
                              "map/sweep launches served by the scalar "
                              "spec walk (legacy tunables)")
+            .add_u64_counter("launches_sharded",
+                             "launches that rode the mesh-sharded "
+                             "path (counted in addition to the engine)")
             .add_u64_counter("path_checks",
                              "expected-vs-actual engine checks at "
                              "Mapper/OSDMapMapping sweep sites")
@@ -308,11 +311,14 @@ class DeviceRuntimeMonitor:
         eng = normalize_engine(path)
         if eng in ENGINES:
             self.perf.inc(f"launches_{eng}", n)
+        if path and "+sharded" in path:
+            self.perf.inc("launches_sharded", n)
 
     def record_path_check(self, expected: str | None,
                           actual: str | None) -> bool:
         """One expected-vs-actual engine check; returns True on mismatch.
-        Both sides normalize, so 'kernel-plain' == 'kernel'."""
+        Both sides normalize, so 'kernel-plain' == 'kernel' and the
+        '+sharded' suffix never trips a false mismatch."""
         e, a = normalize_engine(expected), normalize_engine(actual)
         self.perf.inc("path_checks")
         if e == a or e == "?":
@@ -407,6 +413,7 @@ class DeviceRuntimeMonitor:
             "launches_kernel": int(d.get("launches_kernel", 0)),
             "launches_vm": int(d.get("launches_vm", 0)),
             "launches_scalar": int(d.get("launches_scalar", 0)),
+            "launches_sharded": int(d.get("launches_sharded", 0)),
             "compiles": int(p.get("jit_compiles", 0)),
             "compile_ms": int(
                 float(p.get("jit_compile_seconds", 0.0)) * 1e3),

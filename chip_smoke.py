@@ -299,7 +299,7 @@ Gateway"), SigV4 users on:
    and its bytes; a presigned GET; a ``public-read`` object's anonymous
    GET (a private one's is refused).
 58. Two ``CephFSClient``s on the card (keys in the conf), IO500's
-   mdtest-easy at 256 empty files per client in a directory of its own:
+   mdtest-easy at 128 empty files per client in a directory of its own:
    creates, with ``ceph_cli mds fail <active>`` started with them (each
    client's last 64 creates wait for it), so the standby takes rank 0
    and the clients reconnect and replay; every acknowledged file listed
@@ -357,6 +357,36 @@ of its loadgen worker and of ``ec_bench``):
    report, both storms' summaries, ec_bench's seconds and MB/s, the
    resumed sweep's record, and both kernels' launches by process kind
    and step.
+
+Then the multi-device layer (``multi_device_path``, after the EC PG
+path), on the one card: every crush_straw2 and gf_encode launch is held
+against its plain version (``EdgeLaunchLog``, ``GfLaunchLog``), and the
+counts are set to 0 just before each sharded path and read just after:
+
+68. ``bench.multichip`` at the pod-scale target, on ``local_mesh()`` (one
+   slot): ``--crush-pgs 100000000`` on the canonical 10,240-OSD map, rule
+   0, 3 replicas, in tiles of 2^21 PGs. The ``crush_multichip`` record is
+   measured, not extrapolated; a sharded sweep's counts and ``bad`` equal
+   an unsharded ``Mapper.sweep`` of the same range, and the placements
+   are 3 x 100M. In these sweeps the plain version checks the first
+   65,536 lanes of each shard's first tile and the last 65,536 of its
+   last (it takes ~1.3 s a tile); every other launch of the phase is
+   checked whole.
+69. A four-slot mesh of the card: ``sharded_map_pgs`` of 2^21 + 17 seeds
+   equals ``Mapper.map_pgs`` lane for lane (four launches, one copy of
+   the map: the Mapper's), the shard edges and 64 spread rows equal the
+   scalar spec; an ``OSDMapMapping(mesh=, mesh_min_batch=1)`` of
+   ``osdmaptool --createsimple 10240 --pg-num 65536`` equals the
+   mesh-less table, with sharded sweeps counted there and in devmon's
+   ``launches_sharded``; ``sharded_encode`` and ``sharded_decode`` at
+   (64, 8, 524288), k=8 m=3, equal ``encode_batch`` and ``decode_batch``
+   exactly; the sharded encode's GiB/s at one and four slots.
+70. Two ``python -m ceph_tpu_torch.parallel.multihost`` ranks on the card
+   (gloo, four slots each; a ``sitecustomize`` hooks both kernels in
+   each rank): both exit 0 within 180 s, their EC checksums equal an
+   encode of the whole batch here and their placements 3 x 256 x 8; each
+   rank's launches are checked and counted.
+71. Every step launched its kernels. One ``multi_device_path`` JSON line.
 
 Last: one JSON line listing both kernels, then the card from
 nvidia-smi, then the last line ``{"ok": true, "device": {...}}``.
@@ -637,6 +667,12 @@ def main() -> None:
     mark("ec_object_path")
     by_path["ec_pg_path"], err_pg = ec_pg_path_phase(card, spec)
     mark("ec_pg_path")
+    md = multi_device_path_phase(card)
+    mark("multi_device_path")
+    crush["launches_by_path"]["multi_device_path"] = md["crush"][0]
+    crush["launches"] += md["crush"][0]
+    crush["max_abs_err"] = max(crush["max_abs_err"], md["crush"][1])
+    by_path["multi_device_path"] = md["gf"][0]
     by_path["osd_cluster_path"] = cluster["gf"][0]
     by_path["rbd_path"] = rbd["gf"][0]
     by_path["fs_rgw_path"] = fs["gf"][0]
@@ -653,7 +689,7 @@ def main() -> None:
         "launches_by_path": by_path,
         "max_abs_err": max(err_enc, err_dec, err_plane, err_obj, err_pg,
                            cluster["gf"][1], rbd["gf"][1], fs["gf"][1],
-                           storm["gf"][1]),
+                           storm["gf"][1], md["gf"][1]),
         "ms": enc_ms,
         "plain_ms": plain_enc_ms,
         "bound_ms": enc_bound_s * 1e3,
@@ -3910,7 +3946,10 @@ def proc_child(argv: list) -> None:
             "errors_after": len(out["errors_after"]),
             "refused": out["errors_before"] == ["not primary+active"],
             "state": scrubber.pg.state, "epoch": scrubber.pg.epoch,
-            "label": logs["gf"].label})
+            "label": logs["gf"].label,
+            # what a repair found and left, in the scrub's own words
+            "found": out["errors_before"][:16],
+            "left": out["errors_after"][:8]})
         return out
     scrub_mod.Scrubber.repair = repair
     real_boot, real_start = daemon.OSD.boot, Monitor.start
@@ -4501,6 +4540,7 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
                                        "oid": oid, "offset": int(
                                            rng.integers(0, OBJ_SIZE // K))})
                 saved[(name, cid, oid)] = out["crc"]
+            rec["corrupted"] = [list(k) for k in saved]
             # deep scrub reads through the residency cache (a reference
             # fault, ROADMAP Queue C): none of these may be resident
             for oid, seed in pick:
@@ -4833,7 +4873,7 @@ S3_DEGRADED = 16                     # GETs after an OSD is hard-stopped
 S3_KILL = 4                          # the OSD hard-stopped
 # mdtest-easy files per client, cut from 512 to hold the smoke's time
 # once storm_path joined it (512 files' creates and unlinks took ~100 s)
-MDT_FILES = 256
+MDT_FILES = 128
 MDT_AFTER_FAIL = 64                  # each client's creates after `mds fail`
 IOR_SIZE, IOR_XFER = 64 << 20, 4 << 20   # ior-easy per client, transfer
 
@@ -5958,10 +5998,11 @@ def launch_record(tool: str, label, glog, clog) -> dict:
 def site_hooks() -> None:
     """Both kernels' checking hooks in a process that ``CHIP_SMOKE_HOOK``
     names (``loadgen``: the loadgen worker, and no other process that
-    inherits the environment; ``ec_bench``: its embedded interpreter).
-    Launches wait, timed by CUDA events, until the tool is done with the
-    port (the worker exits; ``ec_bench`` destroys its plugin, after its
-    timed loop and ``--verify``, and never finalizes the interpreter):
+    inherits the environment; ``multihost``: a ``parallel.multihost``
+    rank; ``ec_bench``: its embedded interpreter). Launches wait, timed
+    by CUDA events, until the tool is done with the port (the worker or
+    rank exits; ``ec_bench`` destroys its plugin, after its timed loop
+    and ``--verify``, and never finalizes the interpreter):
     then each is held against its plain version and the counts go as one
     JSON line to the file ``CHIP_SMOKE_HOOK_LOG`` names."""
     import atexit
@@ -5985,7 +6026,7 @@ def site_hooks() -> None:
             with open(os.environ["CHIP_SMOKE_HOOK_LOG"], "a") as f:
                 f.write(json.dumps(launch_record(tool, glog.label, glog,
                                                  clog)) + "\n")
-    if tool == "loadgen":
+    if tool in ("loadgen", "multihost"):
         atexit.register(finish)
         return
     from ceph_tpu_torch.interop import ec_shim
@@ -6327,6 +6368,370 @@ async def storm_steps(h) -> dict:
                 "host_s": host_s,
                 "phase_s": time.perf_counter() - t_phase})
     return rec
+
+
+# -- the multi-device layer (steps 68-71) --------------------------------------
+MD_PGS = 100_000_000                  # bench/multichip's pod-scale target
+MD_OSDS = 10240                       # the canonical map
+MD_SLOTS = 4                          # slots of the card mesh in (b)
+MD_MAP_N = (1 << 21) + 17             # sharded_map_pgs lanes in (b)
+MD_EDGE = 1 << 16                     # lanes checked at each 100M shard edge
+MD_SPEC_ROWS = 64                     # rows against the scalar spec
+MD_RANKS, MD_RANK_TIMEOUT = 2, 180    # multihost ranks; each one's bound (s)
+MD_LOG = "build/multi_device_path.log"
+
+
+class EdgeLaunchLog(LaunchLog):
+    """``LaunchLog`` for sweeps of ``MD_PGS`` PGs, where the plain version
+    would take ~1.3 s for each 2^21-lane tile (over a minute a sweep):
+    while ``edges`` is set, every launch is timed and counted, but only
+    the first ``lanes`` lanes of a tile whose first seed starts a shard,
+    and the last ``lanes`` of one whose last seed ends a shard (the seeds
+    in ``edges``), are held against the plain version. Launches of at
+    most ``2 * lanes`` lanes, and every launch while ``edges`` is None,
+    are checked whole. A launch reads nothing back: its head and tail are
+    kept on the card, and ``drain`` picks the edges among them."""
+
+    def __init__(self, kernels, lanes: int):
+        super().__init__(kernels)
+        self.edges, self.lanes = None, lanes
+        self.lanes_checked = self.lanes_run = 0
+
+    def launch(self, pt, xs, numrep):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        leaves, bad = self.real(pt, xs, numrep)
+        end.record()
+        n, k = int(xs.shape[0]), self.lanes
+        if self.edges is None or n <= 2 * k:
+            parts = [(slice(None), None)]
+        else:
+            parts = [(slice(0, k), 0), (slice(n - k, n), -1)]
+        self.lanes_run += n
+        self.pending.append((pt, numrep, start, end, [
+            (xs[sl].clone(), leaves[sl].clone(), bad[sl].clone(), at)
+            for sl, at in parts]))
+        return leaves, bad
+
+    def drain(self, what: str) -> None:
+        for pt, numrep, start, end, parts in self.pending:
+            end.synchronize()
+            # the plain version's temps are (lanes, candidates, widest
+            # level) int64: chunk the lanes to ~256 MiB a temp (the phase
+            # runs last, beside what the earlier phases hold on the card)
+            width = max(lv[1] for lv in pt.plan.level_sizes)
+            chunk = min(1 << 16, max(256, (1 << 25) //
+                                     (width * (numrep + 2))))
+            for xs, leaves, bad, at in parts:
+                if at is not None and int(xs[at]) & _M32 not in self.edges:
+                    continue
+                plain, plain_bad = self.kernels.crush_straw2_plain(
+                    pt, xs, numrep, chunk=chunk)
+                diff = int((leaves.long() - plain.long()).abs().max()) \
+                    if plain.numel() else 0
+                self.worst = max(self.worst, diff)
+                require(diff == 0 and torch.equal(bad, plain_bad),
+                        f"{what}: a crush_straw2 launch differs from its "
+                        f"plain version on {xs.shape[0]} lanes")
+                self.lanes_checked += int(xs.shape[0])
+            self.checked += 1
+        self.pending.clear()
+
+
+def multi_device_path_phase(card: str) -> dict:
+    """The multi-device layer on the one card (steps 68-71): the 100M-PG
+    aggregated sweep of the canonical map through ``bench.multichip``, the
+    sharded paths on a four-slot mesh of the card, and two
+    ``parallel.multihost`` ranks over gloo. Every launch of both kernels
+    is held against its plain version (the 100M sweeps at their shards'
+    edges, ``EdgeLaunchLog``); the counts are set to 0 just before each
+    sharded path and read just after. Returns the phase's record with
+    ``crush`` and ``gf`` as (launches, worst error); every check raises."""
+    import gc
+    import os
+    import site
+
+    from ceph_tpu_torch.bench import crush_sweep, multichip, osdmaptool
+    from ceph_tpu_torch.crush import kernels as ckern
+    from ceph_tpu_torch.crush.mapper import Mapper
+    from ceph_tpu_torch.crush.sharded_sweep import sharded_map_pgs, \
+        sharded_sweep
+    from ceph_tpu_torch.ec import matrix as rs
+    from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.gf import kernels as gkern
+    from ceph_tpu_torch.gf import tables
+    from ceph_tpu_torch.osd.osdmap_mapping import OSDMapMapping
+    from ceph_tpu_torch.parallel import local_mesh, sharded_decode, \
+        sharded_encode
+    from ceph_tpu_torch.parallel.sharded import gather, shard_batch
+    from ceph_tpu_torch.utils.devmon import devmon
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"card": card, "card_allocated_GiB_at_start":
+           torch.cuda.memory_allocated() / 2**30}
+    launches = {"crush": {}, "gf": {}}
+
+    # the hooks hold the wrappers, whose counts move only at a launch
+    clog = EdgeLaunchLog(ckern, MD_EDGE)
+    glog = GfLaunchLog(gkern)
+
+    def reset():
+        clog.real.launches = glog.real.launches = 0
+
+    def read(step):
+        launches["crush"][step] = clog.real.launches
+        launches["gf"][step] = glog.real.launches
+
+    with clog, glog:
+        # -- 68. the 100M-PG sweep of the canonical map, one slot ---------
+        one = local_mesh()
+        require(one.size == 1, f"local_mesh() has {one.size} slots")
+        clog.edges = {0, MD_PGS - 1}      # each 100M sweep is one shard
+        reset()
+        t0 = time.perf_counter()
+        bench = multichip.main(["--crush-pgs", str(MD_PGS), "--num-osds",
+                                str(MD_OSDS)])
+        mapper = Mapper(crush_sweep.canonical_map(MD_OSDS), device="cuda")
+        counts, bad = sharded_sweep(one, mapper, 0, 0, MD_PGS, 3)
+        read("multichip")
+        rec["flagged_lanes_100M"] = mapper.flagged_lanes
+        rec["multichip_host_s"] = time.perf_counter() - t0
+        want, want_bad = Mapper(crush_sweep.canonical_map(MD_OSDS),
+                                device="cuda").sweep(0, 0, MD_PGS, 3)
+        sweep = bench["crush_multichip"]
+        require(torch.equal(counts, want) and int(bad) == int(want_bad),
+                "multi-device: the sharded 100M sweep's counts differ from "
+                "the unsharded sweep's")
+        require(sweep["extrapolated"] is False and sweep["measured"] and
+                sweep["n_pgs"] == MD_PGS and sweep["n_osds"] == MD_OSDS and
+                sweep["path"] == "kernel+sharded" and
+                sweep["platform"] == "gpu" and
+                sweep["bad_mappings"] == int(want_bad) and
+                sweep["placements"] == int(want.sum()) == 3 * MD_PGS,
+                f"multi-device: crush_multichip {sweep}")
+        clog.drain("multichip")
+        glog.drain("multichip")
+        clog.edges = None
+        rec["crush_multichip"] = sweep
+        rec["table"] = bench["table"]
+        print(f"[{card}] multi_device_path: {MD_PGS} PGs of the "
+              f"{MD_OSDS}-OSD map in {sweep['seconds_wall']} s wall, "
+              f"{sweep['mappings_per_s']} mappings/s (one slot; "
+              f"measured, not extrapolated; the kernel flagged "
+              f"{rec['flagged_lanes_100M']} lanes to the rule VM)",
+              flush=True)
+
+        # -- 69. the sharded code on a four-slot mesh of the card ---------
+        mesh = local_mesh(MD_SLOTS, device="cuda:0")
+        mp = Mapper(crush_sweep.canonical_map(MD_OSDS), device="cuda")
+        xs = torch.arange(MD_MAP_N, dtype=torch.int64, device="cuda")
+        reset()
+        got = sharded_map_pgs(mesh, mp, 0, xs, 3)
+        torch.cuda.synchronize()
+        read("sharded_map_pgs")
+        require(mp.last_map_path == "kernel+sharded" and
+                launches["crush"]["sharded_map_pgs"] == MD_SLOTS and
+                not mp._replicas,
+                f"multi-device: sharded_map_pgs ran {mp.last_map_path}, "
+                f"{launches['crush']['sharded_map_pgs']} launches, "
+                f"replicas {list(mp._replicas)}")
+        require(torch.equal(got, mp.map_pgs(0, xs, 3)),
+                "multi-device: sharded_map_pgs differs from map_pgs")
+        local_n = -(-MD_MAP_N // MD_SLOTS)
+        rows = sorted({0, MD_MAP_N - 1} | {
+            b for s_ in range(1, MD_SLOTS) for b in
+            (s_ * local_n - 1, s_ * local_n)} | set(np.linspace(
+                0, MD_MAP_N - 1, MD_SPEC_ROWS).astype(int).tolist()))
+        spec_rows = scalar_rows((mp.map, 0, rows, 3, None, None))
+        require(np.array_equal(got[rows].cpu().numpy(),
+                               np.asarray(spec_rows)),
+                "multi-device: sharded rows differ from the scalar spec")
+        om = osdmaptool.create_simple(MD_OSDS, 1 << 16, 3, erasure=False)
+        sharded0 = devmon().perf.dump()["launches_sharded"]
+        reset()
+        mm = OSDMapMapping(om, mesh=mesh, mesh_min_batch=1)
+        torch.cuda.synchronize()
+        read("osdmap_mapping")
+        rec["launches_sharded"] = \
+            devmon().perf.dump()["launches_sharded"] - sharded0
+        require(mm.last_sharded_sweeps > 0 and rec["launches_sharded"] > 0,
+                f"multi-device: {mm.last_sharded_sweeps} sharded sweeps, "
+                f"launches_sharded {rec['launches_sharded']}")
+        om.attach_mesh(None)
+        plain_mm = OSDMapMapping(om)
+        for pid in om.pools:
+            for name in TABLES:
+                require(np.array_equal(getattr(mm._pools[pid], name),
+                                       getattr(plain_mm._pools[pid], name)),
+                        f"multi-device: the sharded table's {name} "
+                        f"differs from the mesh-less table's")
+        clog.drain("sharded_crush")
+
+        registry = ErasureCodePluginRegistry.instance()
+        ec = registry.factory("jax", f"k={K} m={M} technique=reed_sol_van")
+        coding = rs.coding_matrix("reed_sol_van", K, M)
+        dmat = rs.decode_matrix("reed_sol_van", K, M, tuple(AVAIL),
+                                tuple(ERASED))
+        enc, dec = (tuple(torch.as_tensor(a, device="cuda") for a in (
+            tables.expand_bitmatrix(mat), *tables.nibble_tables(mat)))
+            for mat in (coding, dmat))
+        data = random_bytes((B, K, C), SEED + 14)
+        parts = shard_batch(mesh, data)
+        reset()
+        parity = sharded_encode(mesh, *enc, parts)
+        full = tuple(torch.cat([d, p], dim=1) for d, p in zip(parts, parity))
+        rebuilt = sharded_decode(mesh, *dec, tuple(
+            f[:, AVAIL].contiguous() for f in full))
+        torch.cuda.synchronize()
+        read("sharded_ec")
+        want_parity = ec.encode_batch(data)
+        require(torch.equal(gather(parity), want_parity),
+                "multi-device: sharded parity differs from encode_batch")
+        chunks = torch.cat([data, want_parity], dim=1)[:, AVAIL].contiguous()
+        require(torch.equal(gather(rebuilt),
+                            ec.decode_batch(ERASED, AVAIL, chunks)) and
+                torch.equal(gather(rebuilt), data[:, ERASED]),
+                "multi-device: sharded decode differs from decode_batch")
+        glog.drain("sharded_ec")
+        # the encode's rate at one and four slots, timed without the hook's
+        # per-launch events; every timed launch's parity is then held
+        # against the plain version here
+        rec["encode_GiBs"], timed = {}, []
+        gkern.gf_encode = glog.real
+        try:
+            for slots in (1, MD_SLOTS):
+                msh = local_mesh(slots, device="cuda:0")
+                split = shard_batch(msh, data)
+                ms = events_ms(lambda: timed.append(
+                    (split, sharded_encode(msh, *enc, split))), 5)
+                rec["encode_GiBs"][slots] = B * K * C / (ms / 1e3) / 2**30
+        finally:
+            gkern.gf_encode = glog.launch
+        for split, out in timed:
+            for x, y in zip(split, out):
+                err = max_err_vs_plain(gkern, enc[0], x, y, 256)
+                require(err == 0, "multi-device: a timed sharded encode "
+                                  "differs from the plain version")
+        rec["timed_encode_launches"] = sum(len(o) for _, o in timed)
+        print(f"[{card}] multi_device_path: sharded encode at "
+              f"({B}, {K}, {C}): " + ", ".join(
+                  f"{n} slot{'s' if n > 1 else ''} {v:.2f} GiB/s"
+                  for n, v in rec["encode_GiBs"].items()), flush=True)
+
+        # -- 70. two ranks on the card (gloo) -----------------------------
+        site_dir = os.path.join(here, "build", "storm_site")
+        os.makedirs(site_dir, exist_ok=True)
+        with open(os.path.join(site_dir, "sitecustomize.py"), "w") as f:
+            f.write(STORM_SITE)
+        log_path = os.path.join(here, MD_LOG)
+        sock = __import__("socket").socket()
+        sock.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sock.getsockname()[1]}"
+        sock.close()
+        procs, t_spawn = [], time.perf_counter()
+        try:
+            for r in range(MD_RANKS):
+                hook_log = f"{log_path}.{r}"
+                if os.path.exists(hook_log):
+                    os.remove(hook_log)
+                env = dict(os.environ, CHIP_SMOKE_HOOK="multihost",
+                           CHIP_SMOKE_HOOK_LOG=hook_log,
+                           CHIP_SMOKE_LABEL="multi_device_ranks",
+                           PYTHONPATH=os.pathsep.join(
+                               [site_dir, here, *site.getsitepackages(),
+                                *filter(None,
+                                        [os.environ.get("PYTHONPATH")])]))
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "ceph_tpu_torch.parallel.multihost",
+                     "--coordinator", coord, "--num-processes",
+                     str(MD_RANKS), "--process-id", str(r),
+                     "--local-devices", str(MD_SLOTS)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env,
+                    cwd=here))
+            outs, walls = [], []
+            for r, p in enumerate(procs):
+                out, err = p.communicate(timeout=MD_RANK_TIMEOUT)
+                walls.append(time.perf_counter() - t_spawn)
+                require(p.returncode == 0,
+                        f"multi-device: rank {r} exited {p.returncode}: "
+                        f"{err.decode(errors='replace')[-1500:]}")
+                outs.append(json.loads(out.decode().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        hooked = []
+        for r in range(MD_RANKS):
+            with open(f"{log_path}.{r}") as f:
+                (one_rec,) = [json.loads(line) for line in f]
+            hooked.append(one_rec)
+            print(f"[{card}] multi_device_path rank {r}: "
+                  f"{json.dumps(one_rec)}", flush=True)
+        # the ranks' batch, encoded here in one launch
+        bm4 = torch.as_tensor(tables.expand_bitmatrix(
+            rs.coding_matrix("reed_sol_van", 4, 2)), device="cuda")
+        batch = np.random.default_rng(7).integers(
+            0, 256, size=(8 * MD_RANKS, 4, 4096), dtype=np.uint8)
+        local_sum = int(gkern.gf_encode(bm4, torch.as_tensor(
+            batch, device="cuda")).to(torch.int64).sum()) & _M32
+        glog.drain("ranks_local")
+        require(all(o["ok"] and o["processes"] == MD_RANKS and
+                    o["global_devices"] == MD_RANKS * MD_SLOTS and
+                    o["ec_checksum"] == local_sum and
+                    o["crush_placements"] == 3 * 256 * MD_RANKS * MD_SLOTS
+                    for o in outs),
+                f"multi-device: the ranks' records {outs}, local checksum "
+                f"{local_sum}")
+        require(all(h["gf"]["launches"] > 0 and h["crush"]["launches"] > 0
+                    and h["gf"]["checked"] == h["gf"]["launches"]
+                    and h["crush"]["checked"] == h["crush"]["launches"]
+                    for h in hooked),
+                f"multi-device: the ranks' launches {hooked}")
+        launches["crush"]["ranks"] = sum(h["crush"]["launches"]
+                                         for h in hooked)
+        launches["gf"]["ranks"] = sum(h["gf"]["launches"] for h in hooked)
+        rec["ranks"] = {"records": outs, "launches": hooked,
+                        "spawn_to_exit_s": walls,
+                        "kernel_ms": [h["gf"]["ms"] + h["crush"]["ms"]
+                                      for h in hooked]}
+        print(f"[{card}] multi_device_path: {MD_RANKS} ranks of "
+              f"{MD_SLOTS} slots, spawn to exit "
+              + ", ".join(f"{w:.2f}" for w in walls) + " s (their kernels "
+              + ", ".join(f"{x:.3f}" for x in rec["ranks"]["kernel_ms"])
+              + " ms)", flush=True)
+
+    # -- 71. every step launched both kernels; the record -----------------
+    for kern in ("crush", "gf"):
+        for step, n in launches[kern].items():
+            if kern == "gf" and step in ("sharded_map_pgs",
+                                         "osdmap_mapping"):
+                continue
+            if kern == "crush" and step == "sharded_ec":
+                continue
+            require(n > 0, f"multi-device: {step} launched no {kern} "
+                           f"kernel")
+    rec["plain_checks"] = {
+        "crush_launches": clog.checked, "crush_lanes_run": clog.lanes_run,
+        "crush_lanes_checked": clog.lanes_checked,
+        "crush_edge_lanes": f"the first {MD_EDGE} lanes of each shard's "
+                            f"first tile and the last {MD_EDGE} of its last "
+                            f"in every {MD_PGS}-PG sweep; every lane of "
+                            f"every other launch",
+        "gf_launches": glog.checked + rec["timed_encode_launches"]}
+    rec["launches"] = launches
+    rec["layout"] = {"pgs": MD_PGS, "osds": MD_OSDS, "slots": MD_SLOTS,
+                     "map_pgs": MD_MAP_N, "ec": [B, K, M, C],
+                     "ranks": MD_RANKS}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print("multi_device_path: " + json.dumps(rec), flush=True)
+    return dict(rec, crush=(sum(launches["crush"].values()), clog.worst),
+                gf=(sum(launches["gf"].values()), glog.worst))
+
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--proc-child"]:

@@ -34,7 +34,7 @@ from ceph_tpu_torch.utils.devmon import (
 )
 
 # the port's counter names -> ceph_tpu's (engines: kernel = pallas,
-# vm = xla; launches_sharded is not ported)
+# vm = xla)
 ENGINE_MAP = {"kernel": "pallas", "vm": "xla", "scalar": "scalar"}
 COUNTER_MAP = {f"launches_{k}": f"launches_{v}"
                for k, v in ENGINE_MAP.items()}
@@ -46,21 +46,19 @@ def _delta(before: dict, after: dict, key: str) -> int:
 
 def test_counter_names_match_reference():
     """Every counter keeps the reference's name, the launch counters
-    through the engine-name map, so the mgr and Prometheus rows match;
-    only ``launches_sharded`` (the multi-device sweep) is not ported."""
+    through the engine-name map, so the mgr and Prometheus rows match."""
     mine = DeviceRuntimeMonitor(name="devmon_t_names", register=False)
     theirs = jax_devmon.DeviceRuntimeMonitor(name="devmon_j_names",
                                              register=False)
     mapped = {COUNTER_MAP.get(k, k) for k in mine.perf.dump()}
-    assert mapped == set(theirs.perf.dump()) - {"launches_sharded"}
+    assert mapped == set(theirs.perf.dump())
     d = mine.dump()
     assert d["engine"] == devmon_mod.engine_name()
     assert d["engine"] == ("cuda" if torch.cuda.is_available() else "cpu")
     assert d["expected_engine"] == "auto" and d["mismatch_ratio"] == 0.0
     mine_h = mine.health_report()
     theirs_h = theirs.health_report()
-    assert {COUNTER_MAP.get(k, k) for k in mine_h} == \
-        set(theirs_h) - {"launches_sharded"}
+    assert {COUNTER_MAP.get(k, k) for k in mine_h} == set(theirs_h)
 
 
 def test_jit_call_warm_and_failure_unwarm():
