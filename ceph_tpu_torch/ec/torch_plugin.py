@@ -9,8 +9,10 @@ ErasureCodeIsa; src/erasure-code/jerasure/ErasureCodeJerasure.cc).
 Backends (profile key ``backend``):
 
 - ``kernel`` (also spelled ``pallas``, the reference's name, so its
-  profiles parse unchanged): ``gf.kernels.gf_encode``, the hand-written
-  kernel on CUDA and its plain version on the CPU. ``auto`` picks it.
+  profiles parse unchanged): ``gf.kernels.encode_batch_planned`` with
+  one plan per coding matrix (the encode matrix and each cached decode
+  matrix), the hand-written kernel on CUDA and its plain version on the
+  CPU. ``auto`` picks it.
 - ``bitmatmul`` and ``lut``: the plain torch ops of ``gf.ops``.
 
 The device is CUDA unless the profile says ``device=cpu`` (or the
@@ -74,14 +76,20 @@ def on_card(ec) -> bool:
 
 class _MatrixKernel:
     """A GF coding matrix on the device: its (8m, 8k) bitmatrix for the
-    kernel and the bit-plane op, its nibble tables for the lut op."""
+    bit-plane op, its nibble tables for the lut op, and for the kernel
+    its plan (``kernels.make_plan``: the table words, built once)."""
 
     def __init__(self, coeffs: np.ndarray, backend: str,
                  device: torch.device):
         self.coeffs = np.asarray(coeffs, dtype=np.uint8)
         self.backend = backend
-        self.bitmatrix = torch.as_tensor(
-            tables.expand_bitmatrix(self.coeffs), device=device)
+        bm = tables.expand_bitmatrix(self.coeffs)
+        self.plan = None
+        if backend == "kernel":
+            self.plan = kernels.make_plan(bm, device)
+            self.bitmatrix = self.plan.bitmatrix
+        else:
+            self.bitmatrix = torch.as_tensor(bm, device=device)
         lo, hi = tables.nibble_tables(self.coeffs)
         self.lo = torch.as_tensor(lo, device=device)
         self.hi = torch.as_tensor(hi, device=device)
@@ -89,7 +97,7 @@ class _MatrixKernel:
     def apply_batch(self, data: torch.Tensor) -> torch.Tensor:
         """(batch, rows_in, C) -> (batch, rows_out, C)."""
         if self.backend == "kernel":
-            return kernels.gf_encode(self.bitmatrix, data)
+            return kernels.encode_batch_planned(self.plan, data)
         return ops.encode_stripes(self.bitmatrix, self.lo, self.hi, data,
                                   backend=self.backend)
 
@@ -241,12 +249,13 @@ class ErasureCodeTorch(ErasureCodeInterface):
 
         (B, k, C) uint8 -> (parity (B, m, C) uint8, row_crcs (B, k+m)
         int64 holding uint32 values), both on the device. The parity
-        comes from the encode kernel (``gf.kernels.gf_encode``); the CRC
-        leg is ``ec.crc.row_crcs_t``, the GF(2) product of the word's
-        row bits with ``row_crc_matrix(C)`` in exact float32 torch ops,
-        taken over chunks of C so its operand stays near the batch's own
-        size. The per-shard combine over a write's rows is O(rows)
-        32-bit host work in ``ec.crc``. Accounted as ``ec_encode_crc``."""
+        comes from the encode kernel (``gf.kernels.encode_batch_planned``
+        with the encode matrix's plan); the CRC leg is
+        ``ec.crc.row_crcs_t``, the GF(2) product of the word's row bits
+        with ``row_crc_matrix(C)`` in exact float32 torch ops, taken over
+        chunks of C so its operand stays near the batch's own size. The
+        per-shard combine over a write's rows is O(rows) 32-bit host work
+        in ``ec.crc``. Accounted as ``ec_encode_crc``."""
         kern = self._encode_kernel
         data = self._on_device(data)
         return _devmon().jit_call("ec_encode_crc",

@@ -21,8 +21,12 @@ prints no result. The erasure-code path:
 3. Ragged shapes: the kernel called directly at C not a multiple of 16,
    C = 1, B = 1, a misaligned pointer and a non-RS bitmatrix, against the
    plain version.
-4. Times (CUDA events) at the flagship shape: the kernel and its plain
-   version for encode and decode, the bound, and the port's benchmark.
+4. Times (CUDA events) at the flagship shape: the kernel through the
+   plugin's plans and through ``gf_encode``, and its plain version, for
+   encode and decode, the bound, and the port's benchmark; then the
+   kernel alone at the six shapes of the EC paths
+   (``bench/gf_kernel_bench.py``), both entry points in turns, each
+   beside its bound.
 
 Then CRUSH placement, at full width (``crush_phases``):
 
@@ -507,7 +511,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from ceph_tpu_torch.bench import ec_benchmark
+    from ceph_tpu_torch.bench import ec_benchmark, gf_kernel_bench
     from ceph_tpu_torch.ec import matrix as rs
     from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
     from ceph_tpu_torch.gf import kernels, tables
@@ -604,8 +608,14 @@ def main() -> None:
     # -- 4. times ------------------------------------------------------------
     spec = roofline.device_spec(name)
     require(spec is not None, f"no datasheet entry for {name}")
-    enc_ms = events_ms(lambda: kernels.gf_encode(enc_bm, data), 20)
-    dec_ms = events_ms(lambda: kernels.gf_encode(dec_bm, chunks), 20)
+    enc_plan = ec._encode_kernel.plan
+    dec_plan = ec._decode_kernel(tuple(AVAIL), tuple(ERASED)).plan
+    enc_ms = events_ms(
+        lambda: kernels.encode_batch_planned(enc_plan, data), 20)
+    dec_ms = events_ms(
+        lambda: kernels.encode_batch_planned(dec_plan, chunks), 20)
+    raw_enc_ms = events_ms(lambda: kernels.gf_encode(enc_bm, data), 20)
+    raw_dec_ms = events_ms(lambda: kernels.gf_encode(dec_bm, chunks), 20)
     plain_enc_ms = events_ms(lambda: kernels.gf_encode_plain(enc_bm, data), 3)
     plain_dec_ms = events_ms(
         lambda: kernels.gf_encode_plain(dec_bm, chunks), 3)
@@ -616,14 +626,24 @@ def main() -> None:
     timings = {
         "card": card,
         "shape": {"B": B, "k": K, "m": M, "C": C},
-        "encode": {"kernel_ms": enc_ms, "plain_ms": plain_enc_ms,
+        "encode": {"kernel_ms": enc_ms, "raw_ms": raw_enc_ms,
+                   "plain_ms": plain_enc_ms,
                    "bound_ms": enc_bound_s * 1e3, "bytes": enc_bytes,
                    "input_GiB/s": B * K * C / (enc_ms / 1e3) / 2**30},
-        "decode": {"kernel_ms": dec_ms, "plain_ms": plain_dec_ms,
+        "decode": {"kernel_ms": dec_ms, "raw_ms": raw_dec_ms,
+                   "plain_ms": plain_dec_ms,
                    "bound_ms": dec_bound_s * 1e3, "bytes": dec_bytes,
                    "read_GiB/s": B * K * C / (dec_ms / 1e3) / 2**30},
     }
     print("timings: " + json.dumps(timings))
+    # the kernel alone at the six shapes of the EC paths, both entry
+    # points in turns
+    shapes = gf_kernel_bench.measure(gf_kernel_bench.builds(), spec,
+                                     plain=False)
+    for rec in shapes:
+        require(not any(rec["max_abs_err"].values()),
+                f"gf_encode differs from plain at {rec['shape']}")
+        print(f"[{card}] gf_encode at {rec['shape']}: " + json.dumps(rec))
     flagship = ["--plugin", "jax", "--size", str(K * C), "--iterations",
                 str(B), "--parameter", f"k={K}", "--parameter", f"m={M}",
                 "--json"]
@@ -969,16 +989,19 @@ def ec_plugin_phase(registry, card: str) -> dict:
 
 
 class GfLaunchLog:
-    """A checking hook around ``kernels.gf_encode``: every launch is timed
-    with CUDA events under the current ``label`` and, once ``drain``
-    runs, held against ``gf_encode_plain`` on the same bitmatrix and
-    batch (after the timed windows, so the check costs the path
-    nothing). The batches a launch reads and writes are fresh tensors
-    that nothing writes later, so holding references is enough."""
+    """A checking hook around both entry points of the encode kernel,
+    ``kernels.gf_encode`` and ``kernels.encode_batch_planned``: every
+    launch is timed with CUDA events under the current ``label`` and,
+    once ``drain`` runs, held against ``gf_encode_plain`` on the same
+    bitmatrix (a plan's own) and batch (after the timed windows, so the
+    check costs the path nothing). The batches a launch reads and writes
+    are fresh tensors that nothing writes later, so holding references
+    is enough. ``real.launches`` is the kernel's count of both."""
 
     def __init__(self, kernels):
         self.kernels = kernels
         self.real = kernels.gf_encode
+        self.real_planned = kernels.encode_batch_planned
         self.label = None
         self.pending = []
         self.launches, self.ms, self.shapes = {}, {}, {}
@@ -986,19 +1009,27 @@ class GfLaunchLog:
 
     def __enter__(self):
         self.kernels.gf_encode = self.launch
+        self.kernels.encode_batch_planned = self.launch_planned
         return self
 
     def __exit__(self, *exc):
         self.kernels.gf_encode = self.real
+        self.kernels.encode_batch_planned = self.real_planned
 
-    def launch(self, bm, data):
+    def _timed(self, fn, op, bm, data):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = self.real(bm, data)
+        out = fn(op, data)
         end.record()
         self.pending.append((bm, data, out, start, end, self.label))
         return out
+
+    def launch(self, bm, data):
+        return self._timed(self.real, bm, bm, data)
+
+    def launch_planned(self, plan, data):
+        return self._timed(self.real_planned, plan, plan.bitmatrix, data)
 
     def drain(self, what: str) -> None:
         """Check every pending launch against the plain version."""
@@ -1031,29 +1062,6 @@ def reserve_allocator(large: int, small: int) -> None:
     few = [torch.empty(1 << 20, dtype=torch.uint8, device="cuda")
            for _ in range(small >> 20)]
     del big, few
-
-
-def kernel_device_ms(fn, reps: int, kernel: str):
-    """Mean device milliseconds per launch of the CUDA kernel named
-    ``kernel`` over ``reps`` runs of ``fn``, from a torch.profiler trace
-    (back-to-back launches of a small batch are host-bound, so CUDA
-    events around them time the host); None when the trace holds no
-    device time for it."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        if kernel in ev.key and ev.count:
-            us = getattr(ev, "device_time_total", None)
-            if us is None:
-                us = getattr(ev, "cuda_time_total", 0)
-            return us / 1e3 / ev.count if us else None
-    return None
 
 
 def write_breakdown(be, rng, n_objs: int, n_rmw: int) -> dict:
@@ -1339,15 +1347,23 @@ def ec_object_path_phase(registry, card: str, spec) -> tuple[dict, int]:
           f"synchronised): " + json.dumps(breakdown))
 
     # -- the kernel alone at the object path's widths ---------------------
-    bm = ec._encode_kernel.bitmatrix
+    # (device times from a torch.profiler trace: back-to-back launches of
+    # a small batch are host-bound, so CUDA events around them time the
+    # host)
+    from ceph_tpu_torch.bench.gf_kernel_bench import device_ms
+    bm, plan = ec._encode_kernel.bitmatrix, ec._encode_kernel.plan
     widths = {}
     for b in (stripes, 1):
         x = random_bytes((b, K, OBJ_C), SEED + 6 + b)
         nbytes, ops = roofline.gf_encode_work(b, K, M, OBJ_C)
         bound_s, bound_by = roofline.bound_seconds(nbytes, ops, spec)
         widths[f"{b}x{K}x{OBJ_C}"] = {
-            "kernel_device_ms": kernel_device_ms(
-                lambda: kernels.gf_encode(bm, x), 50, "gf_encode_kernel"),
+            "planned_kernel_device_ms": device_ms(
+                lambda: kernels.encode_batch_planned(plan, x), 200),
+            "planned_back_to_back_events_ms": events_ms(
+                lambda: kernels.encode_batch_planned(plan, x), 50),
+            "kernel_device_ms": device_ms(
+                lambda: kernels.gf_encode(bm, x), 200),
             "back_to_back_events_ms": events_ms(
                 lambda: kernels.gf_encode(bm, x), 50),
             "plain_ms": events_ms(lambda: kernels.gf_encode_plain(bm, x),
@@ -3620,16 +3636,17 @@ def ec_pg_path_phase(card: str, spec) -> tuple[int, int]:
         launches = asyncio.run(run(log))
 
     # -- the kernel at the PG path's shapes --------------------------------
+    from ceph_tpu_torch.bench.gf_kernel_bench import device_ms
     ec = factory(f"plugin=jax k={K} m={M} technique=reed_sol_van")
-    bm = ec._encode_kernel.bitmatrix
+    bm, plan = ec._encode_kernel.bitmatrix, ec._encode_kernel.plan
     widths = {}
     for b in (stripes, 1):
         x = random_bytes((b, K, OBJ_C), SEED + 8 + b)
         nbytes, ops = roofline.gf_encode_work(b, K, M, OBJ_C)
         bound_s, bound_by = roofline.bound_seconds(nbytes, ops, spec)
         widths[f"{b}x{K}x{OBJ_C}"] = {
-            "kernel_device_ms": kernel_device_ms(
-                lambda: kernels.gf_encode(bm, x), 50, "gf_encode_kernel"),
+            "planned_kernel_device_ms": device_ms(
+                lambda: kernels.encode_batch_planned(plan, x), 200),
             "plain_ms": events_ms(lambda: kernels.gf_encode_plain(bm, x),
                                   5),
             "bound_ms": bound_s * 1e3, "bound_by": bound_by,

@@ -53,6 +53,13 @@ def checked(monkeypatch):
         assert torch.equal(out, gkern.gf_encode_plain(bm, data))
         counts["gf_encode"] += 1
         return out
+    real_planned = gkern.encode_batch_planned
+
+    def planned(plan, data):
+        out = real_planned(plan, data)
+        assert torch.equal(out, gkern.gf_encode_plain(plan.bitmatrix, data))
+        counts["gf_encode"] += 1
+        return out
 
     def cr(pt, xs, numrep):
         leaves, bad = real_cr(pt, xs, numrep)
@@ -61,6 +68,7 @@ def checked(monkeypatch):
         counts["crush_straw2"] += 1
         return leaves, bad
     monkeypatch.setattr(gkern, "gf_encode", gf)
+    monkeypatch.setattr(gkern, "encode_batch_planned", planned)
     monkeypatch.setattr(ckern, "crush_straw2", cr)
     return counts
 

@@ -67,8 +67,17 @@ def checked(monkeypatch, card_mesh):
         assert torch.equal(out, gkernels.gf_encode_plain(bm, data))
         seen["gf"] += 1
         return out
+    real_planned = gkernels.encode_batch_planned
+
+    def planned(plan, data):
+        out = real_planned(plan, data)
+        assert torch.equal(out, gkernels.gf_encode_plain(plan.bitmatrix,
+                                                         data))
+        seen["gf"] += 1
+        return out
     monkeypatch.setattr(ckernels, "crush_straw2", crush)
     monkeypatch.setattr(gkernels, "gf_encode", gf)
+    monkeypatch.setattr(gkernels, "encode_batch_planned", planned)
     return seen
 
 

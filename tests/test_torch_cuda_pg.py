@@ -167,16 +167,24 @@ def test_rebuild_fault_raises_out_of_the_push(cuda, monkeypatch):
             target = pg.acting[1]
             assert (await pg._build_backfill_push("o1", target)).exists
             real = kernels.gf_encode
+            real_planned = kernels.encode_batch_planned
 
             def broken(bm, data):
                 raise RuntimeError("injected gf_encode fault")
+
+            def broken_planned(plan, data):
+                raise RuntimeError("injected gf_encode fault")
             monkeypatch.setattr(kernels, "gf_encode", broken)
+            monkeypatch.setattr(kernels, "encode_batch_planned",
+                                broken_planned)
             before = RECOVERY_PERF.dump().get("push_device_failures", 0)
             with pytest.raises(RuntimeError, match="injected gf_encode"):
                 await pg._build_backfill_push("o1", target)
             assert RECOVERY_PERF.dump()["push_device_failures"] == \
                 before + 1
             monkeypatch.setattr(kernels, "gf_encode", real)
+            monkeypatch.setattr(kernels, "encode_batch_planned",
+                                real_planned)
             assert (await pg._build_backfill_push("o1", target)).exists
         finally:
             await cl.stop()

@@ -60,6 +60,13 @@ def watched(monkeypatch):
         assert torch.equal(out, plain(bm, data))
         counts["launches"] += 1
         return out
+    real_planned = gkern.encode_batch_planned
+
+    def planned(plan, data):
+        out = real_planned(plan, data)
+        assert torch.equal(out, plain(plan.bitmatrix, data))
+        counts["launches"] += 1
+        return out
 
     def served_plain(bm, data):
         counts["plain_served"] += 1
@@ -69,6 +76,7 @@ def watched(monkeypatch):
         counts["reference_served"] += 1
         return real_ref(self, data)
     monkeypatch.setattr(gkern, "gf_encode", gf)
+    monkeypatch.setattr(gkern, "encode_batch_planned", planned)
     monkeypatch.setattr(gkern, "gf_encode_plain", served_plain)
     monkeypatch.setattr(ErasureCodeTorch, "encode_batch_reference",
                         served_reference)
