@@ -160,6 +160,12 @@ def sweep_rate(mapper: Mapper, n_pgs: int, num_rep: int = 3,
         "platform": platform,
         "device": kind,
     }
+    # the kernel's launch facts, only where the measured sweep ran on it:
+    # a VM row has no plan, and a degraded row must not carry them
+    if actual_path.startswith("kernel"):
+        info = mapper.kernel_plan_info(rule, num_rep)
+        if info is not None:
+            out.update(info)
     if actual_path != expected_path:
         healed = (mapper.kernel_quarantine_info() is None and
                   mapper.mapping_path(rule, num_rep) == expected_path)

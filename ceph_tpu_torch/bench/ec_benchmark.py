@@ -245,6 +245,9 @@ class ErasureCodeBench:
             "bound_GiB/s": (bound / (1 << 30)) if bound else None,
             "timing": timing_detail or {},
         }
+        if workload == "encode" and self.spec:
+            res["mfu_pct"] = round(
+                100 * roofline.mfu(self.k, self.m, rate, self.spec), 2)
         if erased is not None:
             res["erased"] = erased
             res["chunks_read"] = n_read

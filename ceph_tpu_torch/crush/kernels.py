@@ -50,6 +50,7 @@ from ceph_tpu_torch.utils import cuda_build
 
 SPEC_EXTRA = 2      # candidates beyond numrep, as in the TPU kernel
 MAX_CAND = 16       # candidates a kernel thread holds (csrc kMaxCand)
+THREADS = 128       # PG lanes, one per thread, of a block (csrc kThreads)
 S64_MIN = -(1 << 63)
 LN_ONE = 1 << 48
 MAX_STRATA = 64     # deepest hierarchy a plan takes (a cycle guard)
@@ -215,6 +216,25 @@ class PlanTensors:
     @property
     def device(self) -> torch.device:
         return self.slot_id.device
+
+
+def kernel_geometry(plan: KernelPlan, n_cand: int) -> tuple[int, int, int]:
+    """(pg_lanes, fold, groups) of the launch that maps ``plan`` with
+    ``n_cand`` candidates per lane, in the reference's terms: a cell of
+    ``pg_lanes`` PGs, ``fold`` candidates sharing one pass over the
+    levels, ``groups`` such passes covering the candidates.
+
+    ``csrc/crush_straw2.cu`` runs one PG lane per thread in blocks of
+    ``THREADS`` (kThreads), and each thread walks its candidates one
+    after another, each through every level. So ``pg_lanes`` is the
+    launch's block width, the one figure the launch uses; ``fold`` is 1
+    and ``groups`` is ``n_cand``, which only describe that loop. The
+    Pallas kernel's search over VMEM headroom has no counterpart here.
+    Raises ValueError above MAX_CAND, where the launch is refused."""
+    if not 1 <= n_cand <= MAX_CAND:
+        raise ValueError(f"crush_straw2 takes 1..{MAX_CAND} candidates "
+                         f"per lane, got {n_cand}")
+    return THREADS, 1, n_cand
 
 
 def plan_tensors(plan: KernelPlan, device) -> PlanTensors:

@@ -754,6 +754,35 @@ class Mapper:
             return self._kernel_path()
         return "vm"
 
+    def kernel_plan_info(self, ruleno: int, result_max: int
+                         ) -> dict | None:
+        """Facts of the kernel launch that serves (rule, width), or None
+        where the VM or the scalar walk serves. Bench rows attach them
+        (``crush_sweep.sweep_rate``). The reference's five keys, from
+        this plan and ``kernels.kernel_geometry``:
+
+        - ``fetches_per_sweep``: level passes of one lane (groups x
+          levels);
+        - ``fetch_amortization``: the per-PG reduction of level passes
+          against one pass per candidate, 1.0 for this kernel;
+        - ``candidate_batched``: more than one candidate per pass;
+        - ``kernel_lanes`` / ``candidate_fold``: the block width and
+          the candidates per pass.
+
+        It builds or looks up the plan only: nothing is launched."""
+        if not self.mapping_path(ruleno, result_max).startswith("kernel"):
+            return None
+        plan = self.kernel_plan(ruleno).plan
+        n_cand = self._kernel_numrep(ruleno, result_max) + kernels.SPEC_EXTRA
+        lanes, fold, groups = kernels.kernel_geometry(plan, n_cand)
+        return {
+            "fetches_per_sweep": groups * plan.n_levels,
+            "fetch_amortization": round(n_cand / groups, 3),
+            "candidate_batched": fold > 1,
+            "kernel_lanes": lanes,
+            "candidate_fold": fold,
+        }
+
     def expected_path(self, ruleno: int, result_max: int) -> str:
         """The engine this Mapper is expected to serve (rule, width) on:
         the plan's prediction, except that a Mapper whose kernel failed

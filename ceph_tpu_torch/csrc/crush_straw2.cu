@@ -38,7 +38,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;         // ceph_tpu_torch.crush.kernels.THREADS
 constexpr int kMaxCand = 16;          // ceph_tpu_torch.crush.kernels.MAX_CAND
 constexpr int kItemNone = 0x7FFFFFFF;
 constexpr int kWeightOne = 0x10000;

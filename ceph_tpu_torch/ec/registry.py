@@ -28,7 +28,6 @@ from typing import Callable, Mapping
 from ceph_tpu_torch.ec.interface import (ErasureCodeInterface,
                                          ErasureCodeProfile)
 from ceph_tpu_torch.ec.torch_plugin import ErasureCodeTorch
-from ceph_tpu_torch.interop.native import ErasureCodeRef, build_native
 
 log = logging.getLogger("ceph_tpu_torch.ec")
 
@@ -37,6 +36,8 @@ log = logging.getLogger("ceph_tpu_torch.ec")
 def _native_available() -> bool:
     """One build probe per process: factory() runs per EC instance and
     must not fork `make` every time."""
+    from ceph_tpu_torch.interop.native import build_native
+
     try:
         build_native()
         return True
@@ -66,6 +67,9 @@ class ErasureCodePluginRegistry:
         from ceph_tpu_torch.ec.clay import ErasureCodeClay
         from ceph_tpu_torch.ec.lrc import ErasureCodeLrc
         from ceph_tpu_torch.ec.shec import ErasureCodeShec
+        # interop.native imports ec.interface, so ec's package import
+        # cannot import it back at module level
+        from ceph_tpu_torch.interop.native import ErasureCodeRef
 
         self.add("jax", ErasureCodeTorch)
         # Compatibility aliases: same techniques, same parity bytes.
@@ -104,6 +108,8 @@ class ErasureCodePluginRegistry:
         mapped = {"cauchy": "cauchy_good"}.get(tech, tech)
         if mapped in ("reed_sol_van", "cauchy_orig", "cauchy_good") \
                 and _native_available():
+            from ceph_tpu_torch.interop.native import ErasureCodeRef
+
             prof["technique"] = mapped
             return ErasureCodeRef, True
         return ErasureCodeTorch, False

@@ -73,6 +73,19 @@ class pg_t:
 
 
 @dataclass(frozen=True)
+class spg_t:
+    """Shard-qualified PG for EC pools (ref: osd_types.h struct spg_t)."""
+
+    pgid: pg_t
+    shard: int = -1  # NO_SHARD
+
+    def __str__(self) -> str:
+        if self.shard < 0:
+            return str(self.pgid)
+        return f"{self.pgid}s{self.shard}"
+
+
+@dataclass(frozen=True)
 class ObjectLocator:
     """ref: osd_types.h object_locator_t."""
 

@@ -105,6 +105,20 @@ def decode_bound(n_erased: int, n_read: int, spec: DeviceSpec) -> float:
     return spec.hbm_bytes_per_s / (1.0 + max(n_erased, 1) / n_read)
 
 
+def mfu(k: int, m: int, input_bytes_per_s: float, spec: DeviceSpec) -> float:
+    """The share of the card's dense int8 tensor-core peak that an encode
+    at ``input_bytes_per_s`` would take in the bit-plane form: 64 m
+    multiply-accumulates (128 m operations) per input byte, as
+    ``gf_encode_work`` counts them.
+
+    This is the reference's yardstick, not a utilisation reading:
+    ``csrc/gf_encode.cu`` does its products with table lookups and XOR
+    on the integer pipes and uses no tensor core. An encode at the
+    memory bound (``encode_bound``) reads 47.3% at k=8, m=3 on an H100
+    SXM. ``k`` is unused, as in the reference."""
+    return 128.0 * m * input_bytes_per_s / spec.int8_ops_per_s
+
+
 class RooflineViolation(RuntimeError):
     pass
 

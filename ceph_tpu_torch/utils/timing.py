@@ -50,13 +50,51 @@ def anchor(x: torch.Tensor) -> torch.Tensor:
     The bytes are summed as int64 words (wrapping), one pass over the
     memory: a sum of the uint8 elements cast one by one to int64 ran at
     a fraction of the card's memory rate and cost more than the encode it
-    anchored (H100, chip_smoke.py)."""
+    anchored (H100, chip_smoke.py). That one pass is why the benches
+    anchor with this sum and not with ``xor_anchor``'s folds."""
     flat = x.contiguous().reshape(-1).view(torch.uint8)
     if flat.storage_offset() % 8:
         flat = flat.clone()            # int64 words need 8-byte alignment
     whole = flat.numel() // 8 * 8
     return (flat[:whole].view(torch.int64).sum()
             + flat[whole:].sum(dtype=torch.int64))
+
+
+def _xor_fold(v: torch.Tensor) -> torch.Tensor:
+    """XOR of the elements of a non-empty 1-D integer tensor, as a
+    one-element tensor: halves folded onto each other, log2(n) ops."""
+    while v.numel() > 1:
+        half = v.numel() // 2
+        folded = v[:half] ^ v[half:2 * half]
+        if v.numel() % 2:
+            folded[:1] ^= v[2 * half:]
+        v = folded
+    return v
+
+
+def xor_anchor(x: torch.Tensor) -> torch.Tensor:
+    """The XOR of every element of ``x``, on its device, as the
+    reference's ``xor_anchor`` gives it: a 0-d uint8 for uint8 input,
+    otherwise the XOR of the elements cast to int32 (0 when empty).
+
+    torch has no XOR reduction, so the bulk is read as int64 words and
+    folded in halves, and the eight bytes of the last word are folded
+    with the elements before the first word boundary and after the
+    last: log2(n) launches, where ``anchor`` makes one."""
+    flat = x.reshape(-1)
+    if flat.dtype != torch.uint8:
+        flat = flat.to(torch.int32)
+    if flat.numel() == 0:
+        return torch.zeros((), dtype=flat.dtype, device=flat.device)
+    flat = flat.contiguous()
+    per = 8 // flat.element_size()          # elements per int64 word
+    head = min(-flat.storage_offset() % per, flat.numel())
+    whole = (flat.numel() - head) // per * per
+    parts = [flat[:head], flat[head + whole:]]
+    if whole:
+        word = _xor_fold(flat[head:head + whole].view(torch.int64))
+        parts.append(word.view(flat.dtype))
+    return _xor_fold(torch.cat(parts))[0]
 
 
 def _timed(run: Callable[[], Any], device: torch.device) -> float:

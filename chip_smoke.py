@@ -99,7 +99,7 @@ is held against its plain version by the same hook; the count is set to
    a from-scratch sweep, and the whole table does at the first, middle
    and last change. The other two mons elect a leader and the client
    hunts to it.
-37. Balancer traffic: 64 concurrent ``osd pg-upmap-items``; commits/s and
+37. Balancer traffic: 32 concurrent ``osd pg-upmap-items``; commits/s and
    the time until the client's table holds all 64. The mons' commits so
    far launched no kernel and moved no byte to the card (their devmon).
 38. ``osd map`` of 256 seeded names from the leader (its kernel on its
@@ -224,13 +224,13 @@ set to 0 just before the cluster starts:
    ``stripe_unit`` 4096) and an ``erasure`` pool of 32 PGs on it, and a
    replicated size-3 pool of 32 PGs (the image metadata); clean. Every
    ECPG's plugin and every residency cache is on the card.
-42. ``rados bench``'s defaults: 128 objects of 4 MiB written, 16 in
+42. ``rados bench``'s defaults, cut to 64 objects of 4 MiB written, 16 in
    flight, and 128 header objects of 4 KiB with an xattr and two omap
-   keys; all 128 read back, 16 in flight, equal to a host mirror.
+   keys; all read back, 16 in flight, equal to a host mirror.
 43. 256 4 KiB overwrites at seeded 4 KiB-aligned offsets, 16 in flight.
 44. Two OSDs hard-stopped; the seconds until the mon marks both down
    from the heartbeat reports.
-45. All 128 objects read degraded (PGs that lost two shards decode two
+45. All 64 objects read degraded (PGs that lost two shards decode two
    erasures) and 64 more overwrites.
 46. One OSD revived (log recovery), the other ``osd out`` (backfill onto
    the spare); the seconds to clean and the bytes pushed.
@@ -263,10 +263,10 @@ that process's launches against the plain versions:
    autoscaler recommends for 12 OSDs and two pools); the seconds until a
    mgr is active, and until the balancer's last two ticks changed
    nothing on a clean cluster, with the upmaps it committed.
-50. ``rbd_cli create`` of ``vol0``, 1 GiB at order 22, on the k=8 m=3
+50. ``rbd_cli create`` of ``vol0``, 512 MiB at order 22, on the k=8 m=3
    pool.
 51. ``rbd bench``'s parameters through ``Image``, 16 in flight: the
-   whole image in sequential 4 MiB writes, 512 random 4 KiB writes, 512
+   whole image in sequential 4 MiB writes, 256 random 4 KiB writes, 256
    random 4 KiB reads and a sequential read, every read equal to a host
    mirror.
 52. ``vol1`` (64 MiB) on the replicated pool: a snap, 64 4 KiB writes,
@@ -296,19 +296,19 @@ Gateway"), SigV4 users on:
 
 55. ``ProcCluster.start_fs``; the MDSs' start-up seconds and devices
    (the card); the balancer quiet again after the new pool's moves.
-56. 64 PUTs of 4 MiB (``rgw_obj_stripe_size``) at 16 in flight, each
-   ETag equal to the md5; the bucket listing; 64 HEADs and 64 GETs at 16
+56. 32 PUTs of 4 MiB (``rgw_obj_stripe_size``) at 16 in flight, each
+   ETag equal to the md5; the bucket listing; 32 HEADs and 32 GETs at 16
    in flight, every byte equal to a host mirror.
 57. A 64 MiB multipart upload in 8 MiB parts, its ETag md5-of-md5s-8
    and its bytes; a presigned GET; a ``public-read`` object's anonymous
    GET (a private one's is refused).
 58. Two ``CephFSClient``s on the card (keys in the conf), IO500's
-   mdtest-easy at 128 empty files per client in a directory of its own:
+   mdtest-easy at 64 empty files per client in a directory of its own:
    creates, with ``ceph_cli mds fail <active>`` started with them (each
-   client's last 64 creates wait for it), so the standby takes rank 0
+   client's last 32 creates wait for it), so the standby takes rank 0
    and the clients reconnect and replay; every acknowledged file listed
    once; stats; unlinks.
-59. ior-easy: a file per client, 64 MiB in sequential 4 MiB transfers,
+59. ior-easy: a file per client, 32 MiB in sequential 4 MiB transfers,
    written and read back equal to a host mirror.
 60. ``mkdir /ior/0/.snap/s1``, a rewrite of one transfer: the snapshot
    reads the old bytes, the head the new.
@@ -392,6 +392,16 @@ counts are set to 0 just before each sharded path and read just after:
    rank's launches are checked and counted.
 71. Every step launched its kernels. One ``multi_device_path`` JSON line.
 
+Two lines of phases. The main process runs the main paths above, CRUSH,
+the mon path and the cluster paths (the OSD cluster, RBD, S3 and CephFS,
+the storms) in turn. From the mon path on, one spawned process runs
+beside it, at nice 10 (``SidePhases``): placement across epochs, the EC
+data plane and plugins, the EC object path, the EC PG path and the
+multi-device layer, in turn. Each phase sets and reads its counts in the
+process it runs in; the side's output (``build/side_phases.log``) is
+printed whole after the storms, and a failure there fails the smoke.
+The side's times are taken while the clusters share the card and host.
+
 Last: one JSON line listing both kernels, then the card from
 nvidia-smi, then the last line ``{"ok": true, "device": {...}}``.
 
@@ -403,6 +413,7 @@ from __future__ import annotations
 import asyncio
 import json
 import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -449,7 +460,8 @@ LAYER_OBJS = 16                        # objects per lrc/shec profile
 # holds every object and the degraded reads decode nothing (PERF.md
 # section 4)
 PG_OSDS, PG_OBJS = 12, 128
-PG_RMW_OPS = 256                       # 4 KiB partial writes
+# 4 KiB partial writes, cut from 256 to hold the smoke's time limit
+PG_RMW_OPS = 128
 PG_SCRUB_OBJS = PG_NATIVE_OBJS = 16
 OBJ_RESERVE_LARGE, OBJ_RESERVE_SMALL = 4 << 30, 512 << 20
 
@@ -515,7 +527,7 @@ def main() -> None:
     from ceph_tpu_torch.ec import matrix as rs
     from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
     from ceph_tpu_torch.gf import kernels, tables
-    from ceph_tpu_torch.utils import cuda_build, roofline
+    from ceph_tpu_torch.utils import cuda_build, roofline, timing
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -551,10 +563,7 @@ def main() -> None:
 
     # -- 2. checks -----------------------------------------------------------
     coeffs = rs.coding_matrix("reed_sol_van", K, M)
-    enc_bm = torch.as_tensor(tables.expand_bitmatrix(coeffs), device="cuda")
-    dec_bm = torch.as_tensor(tables.expand_bitmatrix(
-        rs.decode_matrix("reed_sol_van", K, M, tuple(AVAIL), tuple(ERASED))),
-        device="cuda")
+    enc_bm, dec_bm = flagship_bitmatrices()
     err_enc = max_err_vs_plain(kernels, enc_bm, data, parity)
     err_dec = max_err_vs_plain(kernels, dec_bm, chunks, decoded)
     require(err_enc == 0, f"encode differs from plain by {err_enc}")
@@ -647,52 +656,64 @@ def main() -> None:
     flagship = ["--plugin", "jax", "--size", str(K * C), "--iterations",
                 str(B), "--parameter", f"k={K}", "--parameter", f"m={M}",
                 "--json"]
-    ec_benchmark.main(["--workload", "encode", *flagship])
-    ec_benchmark.main(["--workload", "decode", "--erasures", "2", *flagship])
+    enc_row = ec_benchmark.main(["--workload", "encode", *flagship])
+    dec_row = ec_benchmark.main(["--workload", "decode", "--erasures", "2",
+                                 *flagship])
+    want_mfu = round(100 * roofline.mfu(
+        K, M, enc_row["total_bytes"] / enc_row["seconds"], spec), 2)
+    require(0 < enc_row.get("mfu_pct", 0) <= 47.4
+            and enc_row["mfu_pct"] == want_mfu,
+            f"the flagship encode row's mfu_pct is "
+            f"{enc_row.get('mfu_pct')}, want {want_mfu} in (0, 47.4]")
+    require("mfu_pct" not in dec_row, "a decode row carries mfu_pct")
+    xor = timing.xor_anchor(parity)
+    want_xor = int(np.bitwise_xor.reduce(parity.cpu().numpy().reshape(-1)))
+    require(xor.device == parity.device and xor.dtype == torch.uint8
+            and int(xor) == want_xor,
+            f"xor_anchor of the parity is {int(xor)} on {xor.device}, "
+            f"the host's XOR is {want_xor}")
+    print(f"[{card}] flagship encode mfu_pct {enc_row['mfu_pct']} "
+          f"(the share of the int8 tensor-core peak that the bit-plane "
+          f"form of this rate would take; gf_encode uses no tensor core); "
+          f"xor_anchor of the parity {int(xor)} equals the host's")
     mark("ec main path")
 
-    with multiprocessing.get_context("spawn").Pool(8) as pool:
-        crush = crush_phases(spec, pool)
-        mark("crush")
-        placement_launches = placement_epochs_phase(card, pool)
-        mark("placement_epochs")
-        mon_launches, mon_worst = mon_path_phase(card, pool)
-        mark("mon_path")
-        cluster = osd_cluster_path_phase(card, pool)
-        mark("osd_cluster_path")
-    rbd = rbd_path_phase(card)
-    fs, storm = rbd.pop("fs_rgw"), rbd.pop("storm")
-    mark("storm_path")
+    with SidePhases(card) as side:
+        with multiprocessing.get_context("spawn").Pool(8) as pool:
+            crush = crush_phases(spec, pool)
+            mark("crush")
+            # everything below runs beside the side process's phases
+            side.start()
+            mon_launches, mon_worst = mon_path_phase(card, pool)
+            mark("mon_path")
+            side.check()
+            cluster = osd_cluster_path_phase(card, pool)
+            mark("osd_cluster_path")
+            side.check()
+        rbd = rbd_path_phase(card)
+        fs, storm = rbd.pop("fs_rgw"), rbd.pop("storm")
+        mark("storm_path")
+        tail = side.result()
+    md_crush, md_gf = tail["multi_device_path"]
     crush["launches_by_path"] = {"crush_main": crush["launches"],
-                                 "placement_epochs": placement_launches,
+                                 "placement_epochs": tail["placement_epochs"],
                                  "mon_path": mon_launches,
                                  "osd_cluster_path": cluster["crush"][0],
                                  "rbd_path": rbd["crush"][0],
                                  "fs_rgw_path": fs["crush"][0],
-                                 "storm_path": storm["crush"][0]}
-    crush["launches"] += placement_launches + mon_launches + \
-        cluster["crush"][0] + rbd["crush"][0] + fs["crush"][0] + \
-        storm["crush"][0]
+                                 "storm_path": storm["crush"][0],
+                                 "multi_device_path": md_crush[0]}
+    crush["launches"] = sum(crush["launches_by_path"].values())
     crush["max_abs_err"] = max(crush["max_abs_err"], mon_worst,
                                cluster["crush"][1], rbd["crush"][1],
-                               fs["crush"][1], storm["crush"][1])
+                               fs["crush"][1], storm["crush"][1],
+                               md_crush[1])
     by_path = {"encode_decode": launches}
-    plane_launches, err_plane = ec_plane_phases(ec, enc_bm, dec_bm, card,
-                                                spec)
-    by_path.update(plane_launches)
-    by_path.update(ec_plugin_phase(registry, card))
-    mark("ec plane and plugins")
-    obj_launches, err_obj = ec_object_path_phase(registry, card, spec)
-    by_path.update(obj_launches)
-    mark("ec_object_path")
-    by_path["ec_pg_path"], err_pg = ec_pg_path_phase(card, spec)
-    mark("ec_pg_path")
-    md = multi_device_path_phase(card)
-    mark("multi_device_path")
-    crush["launches_by_path"]["multi_device_path"] = md["crush"][0]
-    crush["launches"] += md["crush"][0]
-    crush["max_abs_err"] = max(crush["max_abs_err"], md["crush"][1])
-    by_path["multi_device_path"] = md["gf"][0]
+    by_path.update(tail["plane"])
+    by_path.update(tail["plugins"])
+    by_path.update(tail["object"])
+    by_path["ec_pg_path"] = tail["ec_pg_path"][0]
+    by_path["multi_device_path"] = md_gf[0]
     by_path["osd_cluster_path"] = cluster["gf"][0]
     by_path["rbd_path"] = rbd["gf"][0]
     by_path["fs_rgw_path"] = fs["gf"][0]
@@ -707,9 +728,10 @@ def main() -> None:
         "replaces": "ceph_tpu/gf/pallas_kernels.py:168",
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
-        "max_abs_err": max(err_enc, err_dec, err_plane, err_obj, err_pg,
+        "max_abs_err": max(err_enc, err_dec, tail["err_plane"],
+                           tail["err_object"], tail["ec_pg_path"][1],
                            cluster["gf"][1], rbd["gf"][1], fs["gf"][1],
-                           storm["gf"][1], md["gf"][1]),
+                           storm["gf"][1], md_gf[1]),
         "ms": enc_ms,
         "plain_ms": plain_enc_ms,
         "bound_ms": enc_bound_s * 1e3,
@@ -720,6 +742,165 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+def flagship_bitmatrices() -> tuple[torch.Tensor, torch.Tensor]:
+    """The flagship's encode and decode bitmatrices on the card."""
+    from ceph_tpu_torch.ec import matrix as rs
+    from ceph_tpu_torch.gf import tables
+
+    enc = rs.coding_matrix("reed_sol_van", K, M)
+    dec = rs.decode_matrix("reed_sol_van", K, M, tuple(AVAIL), tuple(ERASED))
+    return (torch.as_tensor(tables.expand_bitmatrix(enc), device="cuda"),
+            torch.as_tensor(tables.expand_bitmatrix(dec), device="cuda"))
+
+
+# -- the side process ---------------------------------------------------------
+# The phases that share no state with the mon and the clusters run in one
+# spawned process beside them, so the smoke's time is the longer of the
+# two lines, not their sum (the whole smoke passed the 1,200 s limit on a
+# slower host when every phase ran in turn; PERF.md section 4). The side
+# runs at a lower CPU priority than every daemon (the OSDs at nice 5), so
+# the clusters' heartbeats and leases keep their share of the host.
+SIDE_LOG = "build/side_phases.log"     # the side process's standard output
+SIDE_NICE = 10
+SIDE_WAIT = 900.0      # the longest wait for its result after storm_path
+
+
+class SidePhases:
+    """Runs ``side_phases`` in a spawned process from ``start`` on.
+    Each of its phases sets the kernels' counts to 0 just before it and
+    reads them just after, in that process, as the main one does for its
+    own. ``check`` raises at once if the side failed; ``result`` waits for
+    it, prints its standard output (``SIDE_LOG``) whole and returns its
+    record. Leaving the ``with`` block stops the process if it still
+    runs."""
+
+    def __init__(self, card: str):
+        self.card = card
+        self.proc = self.conn = self.msg = None
+        self.log = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                SIDE_LOG)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.proc is not None and self.msg is not None:
+            self.proc.join(60)          # it has reported and is ending
+        if self.proc is not None and self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(60)
+            if self.proc.is_alive():
+                self.proc.kill()
+                self.proc.join()
+
+    def start(self) -> None:
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe(duplex=False)
+        # the smoke's start on the wall clock, for the side's own marks
+        t_start = time.time() - (time.perf_counter() - T_SMOKE)
+        self.proc = ctx.Process(target=side_main, name="chip_smoke-side",
+                                args=(child, self.card, self.log, t_start))
+        self.proc.start()
+        child.close()
+
+    def _take(self, timeout: float):
+        if self.msg is None and self.conn.poll(timeout):
+            try:
+                self.msg = self.conn.recv()
+            except EOFError:
+                self.proc.join(60)
+                self.msg = ("error", f"the side process ended (exit code "
+                                     f"{self.proc.exitcode}) with no result")
+        if self.msg is not None and self.msg[0] != "ok":
+            self.show()
+            raise RuntimeError(f"chip smoke failed in the side process:\n"
+                               f"{self.msg[1]}")
+        return self.msg
+
+    def check(self) -> None:
+        self._take(0)
+
+    def result(self) -> dict:
+        t0 = time.perf_counter()
+        msg = self._take(SIDE_WAIT)
+        require(msg is not None, f"the side process gave no result within "
+                                 f"{SIDE_WAIT} s of storm_path's end")
+        self.proc.join(60)
+        require(self.proc.exitcode == 0,
+                f"the side process exited with {self.proc.exitcode}")
+        print(f"smoke: the side process's result waited on for "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        self.show()
+        return msg[1]
+
+    def show(self) -> None:
+        """The side's standard output, under a heading."""
+        print("smoke: the side process's output follows", flush=True)
+        if os.path.exists(self.log):
+            with open(self.log) as f:
+                print(f.read(), end="", flush=True)
+
+
+def side_main(conn, card: str, log: str, t_start: float) -> None:
+    """The side process: ``side_phases`` with its standard output in
+    ``log``; sends ("ok", record) or ("error", traceback) on ``conn``."""
+    import signal
+    import traceback
+
+    global T_SMOKE
+    T_SMOKE = time.perf_counter() - (time.time() - t_start)
+    # a stop from the main process unwinds, so the pools and subprocesses
+    # of the running phase are stopped by their own context managers
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(1))
+    os.nice(SIDE_NICE)
+    os.makedirs(os.path.dirname(log), exist_ok=True)
+    with open(log, "w") as out:
+        sys.stdout.flush()
+        os.dup2(out.fileno(), 1)
+    try:
+        msg = ("ok", side_phases(card))
+    except BaseException:
+        msg = ("error", traceback.format_exc())
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    sys.stdout.flush()
+    conn.send(msg)
+    conn.close()
+    if msg[0] != "ok":
+        sys.exit(1)
+
+
+def side_phases(card: str) -> dict:
+    """Placement across epochs, the EC data plane and plugins, the EC
+    object and PG paths and the multi-device layer, in that order; returns
+    each one's launches and largest difference from the plain version."""
+    from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.utils import roofline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = roofline.device_spec(torch.cuda.get_device_name(0))
+    rec = {}
+    with multiprocessing.get_context("spawn").Pool(8) as pool:
+        rec["placement_epochs"] = placement_epochs_phase(card, pool)
+    mark("placement_epochs")
+    registry = ErasureCodePluginRegistry.instance()
+    ec = registry.factory("jax", f"k={K} m={M} technique=reed_sol_van")
+    enc_bm, dec_bm = flagship_bitmatrices()
+    rec["plane"], rec["err_plane"] = ec_plane_phases(ec, enc_bm, dec_bm,
+                                                     card, spec)
+    rec["plugins"] = ec_plugin_phase(registry, card)
+    mark("ec plane and plugins")
+    rec["object"], rec["err_object"] = ec_object_path_phase(registry, card,
+                                                            spec)
+    mark("ec_object_path")
+    rec["ec_pg_path"] = ec_pg_path_phase(card, spec)
+    mark("ec_pg_path")
+    md = multi_device_path_phase(card)
+    mark("multi_device_path")
+    rec["multi_device_path"] = (md["crush"], md["gf"])
+    return rec
 
 
 def ec_plane_phases(ec, enc_bm, dec_bm, card: str, spec):
@@ -1622,6 +1803,25 @@ def crush_phases(spec, pool) -> dict:
     rates = crush_sweep.sweep_rate_variants(10240, CRUSH_N, 3,
                                             device="cuda",
                                             variants=variants)
+    # an EC pool's indep rule maps on the rule VM: its row is the VM row
+    vm_map = crush_sweep.canonical_map(64)
+    vm_rule = builder.add_simple_rule(vm_map, vm_map.rules[0].steps[0].arg1,
+                                      builder.TYPE_HOST, indep=True)
+    t0 = time.perf_counter()
+    rates["indep_vm"] = crush_sweep.sweep_rate(
+        Mapper(vm_map, block=1024, device="cuda"), 2048, 3, rule=vm_rule)
+    vm_row_s = time.perf_counter() - t0
+    plan_keys = ("fetches_per_sweep", "fetch_amortization",
+                 "candidate_batched", "kernel_lanes", "candidate_fold")
+    for v, r in rates.items():
+        if r["path"] == "kernel":
+            require(all(k in r for k in plan_keys)
+                    and r["kernel_lanes"] == kernels.THREADS == 128,
+                    f"{v}: a kernel sweep row lacks the plan keys: {r}")
+        else:
+            require(r["path"] == "vm" and not any(k in r for k in plan_keys),
+                    f"{v}: a {r['path']} sweep row, or plan keys on it: {r}")
+    require(rates["indep_vm"]["path"] == "vm", "the indep row is not vm")
     tool = crushtool.main(["--build", "--num-osds", "10240", "--hosts",
                            "640", "--racks", "20", "--test", "--num-rep",
                            "3", "--min-x", "0", "--max-x", "1048575",
@@ -1636,8 +1836,10 @@ def crush_phases(spec, pool) -> dict:
         "kernel_mappings_per_s": CRUSH_N / (ms / 1e3),
         "sweep": {v: {k: r[k] for k in ("mappings_per_s", "n_pgs",
                                         "seconds_hi", "path",
-                                        "flagged_lanes")}
+                                        "flagged_lanes", *plan_keys)
+                      if k in r}
                   for v, r in rates.items()},
+        "indep_vm_row_s": vm_row_s,
         "crushtool": {k: tool[k] for k in ("total_x", "seconds",
                                            "mappings_per_second",
                                            "bad_mappings", "path")}}))
@@ -2157,8 +2359,9 @@ def placement_epochs_phase(card: str, pool) -> int:
 # ``osd map``), each held against the plain version by the same hook.
 
 MON_NAMES = ("a", "b", "c")
-MON_BALANCER = 64                      # concurrent pg-upmap-items commands
-MON_OBJECTS = 256                      # `osd map` names, half per pool
+MON_BALANCER = 32                      # concurrent pg-upmap-items (from 64)
+# `osd map` names, half per pool; cut from 256 (23 s) for time
+MON_OBJECTS = 64
 # the stream of map changes, each through the mon as a user would send it
 # (``osd ...`` commands, an MOSDBoot for an up); the leader is stopped
 # before MON_FAILOVER_AT. pg_temp and primary_temp have no command in the
@@ -3695,7 +3898,9 @@ CL_MONS, CL_OSDS = 3, 12
 # clean took over 60 s on the card's host at 128 (PERF.md section 4)
 CL_EC_PGS = 32
 CL_REP_PGS = 32
-CL_OBJS, CL_HDRS, CL_HDR = 128, 128, 4096   # rados bench -b 4M; RBD headers
+# rados bench -b 4M; RBD headers. rados bench's 128 objects cut to 64 for
+# the smoke's time limit (PERF.md section 4)
+CL_OBJS, CL_HDRS, CL_HDR = 64, 128, 4096
 CL_INFLIGHT = 16                            # rados bench -t 16
 CL_RMW, CL_DEG_RMW = 256, 64                # 4 KiB overwrites
 CL_CORRUPT = 16
@@ -4846,10 +5051,11 @@ RBD_MONS, RBD_OSDS, RBD_MGRS = 3, 12, 2
 # PGAutoscalerModule.recommend for 12 OSDs and two pools: 32 at size 11,
 # 128 at size 3, so the autoscaler proposes no split
 RBD_EC_PGS, RBD_REP_PGS = 32, 128
-RBD_IMAGE, RBD_ORDER = 1 << 30, 22          # 256 objects of 4 MiB
+# rbd bench's 1 GiB image cut to 512 MiB (128 objects of 4 MiB) for time
+RBD_IMAGE, RBD_ORDER = 1 << 29, 22
 RBD_INFLIGHT = 16                           # rbd bench --io-threads 16
-# rbd bench --io-size 4K; its --io-total (1 GiB) cut to 2 MiB for time
-RBD_RAND_OPS, RBD_RAND_BYTES = 512, 4096
+# rbd bench --io-size 4K; its --io-total (1 GiB) cut to 1 MiB for time
+RBD_RAND_OPS, RBD_RAND_BYTES = 256, 4096
 RBD_SNAP_IMAGE, RBD_SNAP_WRITES = 64 << 20, 64
 RBD_MGR_MODULES = ("balancer", "pg_autoscaler", "prometheus", "tracing",
                    "progress", "tuner")     # Mgr(modules=None)'s list
@@ -4883,16 +5089,18 @@ FS_CLIENTS = ("client.fs0", "client.fs1")   # keys provisioned in the conf
 S3_USERS = {"SMOKEACCESSKEY": "smoke-secret-key"}
 S3_HOST = "127.0.0.1"
 S3_BUCKET = "smoke"
-S3_OBJS, S3_OBJ = 64, 4 << 20        # RGW's rgw_obj_stripe_size
+S3_OBJS, S3_OBJ = 32, 4 << 20        # cut from 64 for time; RGW's stripe
 S3_INFLIGHT = 16                     # rados bench -t 16
 S3_MP, S3_PART = 64 << 20, 8 << 20   # S3's smallest part is 5 MiB
 S3_DEGRADED = 16                     # GETs after an OSD is hard-stopped
 S3_KILL = 4                          # the OSD hard-stopped
 # mdtest-easy files per client, cut from 512 to hold the smoke's time
-# once storm_path joined it (512 files' creates and unlinks took ~100 s)
-MDT_FILES = 128
-MDT_AFTER_FAIL = 64                  # each client's creates after `mds fail`
-IOR_SIZE, IOR_XFER = 64 << 20, 4 << 20   # ior-easy per client, transfer
+# once storm_path joined it (512 files' creates and unlinks took ~100 s),
+# and from 128 when the smoke passed 1,050 s
+MDT_FILES = 64
+MDT_AFTER_FAIL = 32                  # each client's creates after `mds fail`
+# ior-easy per client (cut from 64 MiB for time), transfer
+IOR_SIZE, IOR_XFER = 32 << 20, 4 << 20
 
 
 def cli_child(argv: list) -> None:
@@ -6012,6 +6220,20 @@ def launch_record(tool: str, label, glog, clog) -> dict:
                       "ms": sum(e["ms"] for e in clog.by_label.values())}}
 
 
+def write_site(here: str) -> str:
+    """Writes ``STORM_SITE`` as ``build/storm_site/sitecustomize.py`` and
+    returns the directory. The file is replaced whole, as the side
+    process's phases and the main one's each write it while the other's
+    tools may be starting."""
+    site_dir = os.path.join(here, "build", "storm_site")
+    os.makedirs(site_dir, exist_ok=True)
+    tmp = os.path.join(site_dir, f"sitecustomize.py.{os.getpid()}")
+    with open(tmp, "w") as f:
+        f.write(STORM_SITE)
+    os.replace(tmp, os.path.join(site_dir, "sitecustomize.py"))
+    return site_dir
+
+
 def site_hooks() -> None:
     """Both kernels' checking hooks in a process that ``CHIP_SMOKE_HOOK``
     names (``loadgen``: the loadgen worker, and no other process that
@@ -6136,10 +6358,7 @@ async def storm_steps(h) -> dict:
     async def fsmap():
         return (await cl.status()).get("fsmap") or {}
 
-    site_dir = os.path.join(h["here"], "build", "storm_site")
-    os.makedirs(site_dir, exist_ok=True)
-    with open(os.path.join(site_dir, "sitecustomize.py"), "w") as f:
-        f.write(STORM_SITE)
+    site_dir = write_site(h["here"])
 
     def hooked(tool: str) -> dict:
         """The environment under which ``site_hooks`` hooks a process of
@@ -6640,10 +6859,7 @@ def multi_device_path_phase(card: str) -> dict:
                   for n, v in rec["encode_GiBs"].items()), flush=True)
 
         # -- 70. two ranks on the card (gloo) -----------------------------
-        site_dir = os.path.join(here, "build", "storm_site")
-        os.makedirs(site_dir, exist_ok=True)
-        with open(os.path.join(site_dir, "sitecustomize.py"), "w") as f:
-            f.write(STORM_SITE)
+        site_dir = write_site(here)
         log_path = os.path.join(here, MD_LOG)
         sock = __import__("socket").socket()
         sock.bind(("127.0.0.1", 0))

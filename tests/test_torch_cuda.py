@@ -151,3 +151,21 @@ def test_plugin_on_card(cuda, technique):
     avail = [i for i in range(6 + m) if i not in (0, 6)][:6]
     got = ec.decode_batch([0, 6], avail, full[:, avail])
     assert np.array_equal(got.cpu().numpy(), full[:, [0, 6]])
+
+
+@pytest.mark.parametrize("n,offset", [(1, 0), (4099, 0), (4099, 3),
+                                      ((1 << 20) + 3, 5)])
+def test_xor_anchor_on_card(cuda, n, offset):
+    """The fold runs on the tensor's device and equals the host's XOR."""
+    from ceph_tpu_torch.utils.timing import xor_anchor
+
+    a = _bytes(np.random.default_rng(n + offset), n)
+    x = torch.as_tensor(a, device=cuda)[offset:]
+    got = xor_anchor(x)
+    assert got.device == x.device and got.dtype == torch.uint8
+    assert int(got) == int(np.bitwise_xor.reduce(a[offset:]))
+    w = np.random.default_rng(n).integers(-2**15, 2**15, n).astype(np.int16)
+    got = xor_anchor(torch.as_tensor(w, device=cuda)[offset:])
+    assert got.device == x.device and got.dtype == torch.int32
+    assert int(got) == int(np.bitwise_xor.reduce(
+        w[offset:].astype(np.int32)))

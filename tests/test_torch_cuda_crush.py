@@ -106,3 +106,20 @@ def test_kernel_launch_failure_raises(cuda):
     assert kernels.crush_straw2.launches == before
     with pytest.raises(ValueError):
         kernels.crush_straw2(pt, xs.cpu(), 3)
+
+
+def test_kernel_plan_info_on_card(cuda):
+    """The plan's launch facts on the card; nothing is launched."""
+    m, rid = _hier(16, 4, n_racks=4)
+    mp = Mapper(m, device=cuda)
+    before = kernels.crush_straw2.launches
+    info = mp.kernel_plan_info(rid, 3)
+    assert mp.mapping_path(rid, 3) == "kernel"
+    n_levels = mp.kernel_plan(rid).plan.n_levels
+    assert info == {"fetches_per_sweep": 5 * n_levels,
+                    "fetch_amortization": 1.0, "candidate_batched": False,
+                    "kernel_lanes": kernels.THREADS, "candidate_fold": 1}
+    assert kernels.crush_straw2.launches == before
+    root = m.rules[rid].steps[0].arg1
+    indep = builder.add_simple_rule(m, root, builder.TYPE_HOST, indep=True)
+    assert Mapper(m, device=cuda).kernel_plan_info(indep, 3) is None

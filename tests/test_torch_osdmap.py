@@ -21,13 +21,13 @@ from ceph_tpu.osd.types import PGPool as RefPool
 from ceph_tpu.osd.types import pg_t as ref_pg
 from ceph_tpu_torch.bench import crushtool
 from ceph_tpu_torch.crush.types import crush_map_from_state
-from ceph_tpu_torch.osd import str_hash
 from ceph_tpu_torch.osd.osdmap import OSDMap
 from ceph_tpu_torch.osd.types import POOL_TYPE_ERASURE, PGPool, pg_t
 
 W = WEIGHT_ONE
-# (ceph_tpu.osd re-exports a str_hash function under the module's name)
+# (both osd packages re-export a str_hash function under the module's name)
 ref_sh = importlib.import_module("ceph_tpu.osd.str_hash")
+str_hash = importlib.import_module("ceph_tpu_torch.osd.str_hash")
 
 
 def _crush(indep=False):
