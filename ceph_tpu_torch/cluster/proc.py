@@ -186,13 +186,16 @@ class ProcCluster:
         ret, rs, _ = await self.client.mon_command(
             {"prefix": "status"}, timeout=60.0)
         assert ret == 0, rs
+        # the bring-up's map changes wait as long as its first command:
+        # on a loaded host the new quorum may still re-elect (a lease or
+        # a paxos round timed out) before its first commits
         for i in range(self.n_osds):
             ret, rs, _ = await self.client.mon_command(
-                {"prefix": "osd new"})
+                {"prefix": "osd new"}, timeout=60.0)
             assert ret == 0, rs
             ret, rs, _ = await self.client.mon_command(
                 {"prefix": "osd crush add", "id": i, "weight": 1.0,
-                 "host": f"host{i}"})
+                 "host": f"host{i}"}, timeout=60.0)
             assert ret == 0, rs
         for i in range(self.n_osds):
             await self._spawn(f"osd.{i}")

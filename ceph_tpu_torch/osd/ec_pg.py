@@ -224,14 +224,28 @@ class ECPG(PG):
             attrs = self.osd.store.getattrs(self.cid, oid)
         except StoreError:
             return default
-        blob = attrs.get("_pos")
-        if not blob:
-            return default
-        return int.from_bytes(blob, "little", signed=True)
+        pos = self._pos_of(attrs)
+        return pos if pos >= 0 else default
 
     @staticmethod
     def _pos_attr(pos: int) -> bytes:
         return int(pos).to_bytes(4, "little", signed=True)
+
+    @staticmethod
+    def _pos_of(attrs: dict) -> int:
+        """The ``_pos`` stamp in an attribute set; -1 without one."""
+        blob = attrs.get("_pos")
+        return int.from_bytes(blob, "little", signed=True) if blob \
+            else -1
+
+    def _stamps(self, oid: str) -> tuple | None:
+        """The stored shard's ``_v`` and ``_pos`` stamps; None without
+        one."""
+        try:
+            attrs = self.osd.store.getattrs(self.cid, oid)
+        except StoreError:
+            return None
+        return attrs.get("_v"), attrs.get("_pos")
 
     def _obj_version(self, oid: str) -> eversion:
         return self._local_shard_state(oid)[2]
@@ -262,7 +276,7 @@ class ECPG(PG):
     async def _gather(self, oid: str, first: int, count: int,
                       version: eversion,
                       exclude_osds: frozenset = frozenset(),
-                      repair: bool = False):
+                      repair: bool = False, resident: bool = True):
         """Collect this stripe range's chunks from live, fresh shards
         and reconstruct data chunks 0..k-1 -> (count, k, C) uint8.
 
@@ -293,12 +307,16 @@ class ECPG(PG):
         keyed by (pg, oid, range, VERSION) — a repeat gather of the
         same generation skips the subreads, the decode and the H2D
         stage entirely. Never consulted or fed under ``exclude_osds``
-        (a rebuild's source constraints are not the cache's)."""
+        (a rebuild's source constraints are not the cache's), nor with
+        ``resident`` False: deep scrub reads the stored shards, which
+        the cache, keyed by version and not by bytes, cannot vouch for
+        (a departure from ``ceph_tpu``, whose deep scrub reads
+        through the cache)."""
         C = self.sinfo.chunk_size
         off, ln = first * C, count * C
         cache = getattr(self.osd, "ec_resident", None)
         ckey = None
-        if cache is not None and not exclude_osds:
+        if cache is not None and resident and not exclude_osds:
             ckey = (str(self.cid), oid, int(first), int(count),
                     _vblob(version))
             hit = cache.get(ckey)
@@ -726,6 +744,14 @@ class ECPG(PG):
             cache.invalidate(str(self.cid), m.oid)
         t = Transaction()
         C = self.sinfo.chunk_size
+        stamp = self._pos_of(m.attrs)
+        held = self._stored_pos(m.oid)
+        if not m.remove and 0 <= held != stamp:
+            log.dout(1, f"pg {self.pgid} osd.{self.osd.whoami} sub-write "
+                        f"of {m.oid} stamps position {stamp} over "
+                        f"{held} (stripes {m.first_stripe}+"
+                        f"{len(m.data) // C} of {m.truncate_stripes}, "
+                        f"epoch {m.epoch})")
         if m.remove:
             t.remove(self.cid, m.oid)
         else:
@@ -914,6 +940,9 @@ class ECPG(PG):
         comes from the fused checksum+encode pass when an encode ran
         (parity shards), and the hcrc_attr zlib fallback otherwise."""
         count = self.sinfo.object_stripes(size) or 1
+        # what this shard holds now: an in-place rebuild lands only if
+        # no sub-write or push replaced it while the sources were read
+        held = self._stamps(oid) if apply_local else None
         # never source the holder being rebuilt: its stored bytes are
         # missing, stale, or corrupt — rebuilding FROM them would
         # faithfully reproduce the damage. (Exclusion is by OSD, not
@@ -934,7 +963,11 @@ class ECPG(PG):
                 row_crcs=row_crcs[:, shard]
                 if row_crcs is not None else None,
                 chunk_size=self.sinfo.chunk_size)
-        if apply_local:
+        if apply_local and self._stamps(oid) != held:
+            log.dout(1, f"pg {self.pgid} osd.{self.osd.whoami} dropped its "
+                        f"rebuild of {oid} for position {shard} at {ver}: "
+                        f"the shard was written meanwhile")
+        elif apply_local:
             t = Transaction()
             t.remove(self.cid, oid)
             t.write(self.cid, oid, 0, shard_bytes)
@@ -944,7 +977,42 @@ class ECPG(PG):
                      "_hcrc": hcrc}
             t.setattrs(self.cid, oid, attrs)
             self.osd.store.queue_transaction(t)
+            log.dout(1, f"pg {self.pgid} osd.{self.osd.whoami} rebuilt "
+                        f"{oid} in place for position {shard} at {ver}")
         return shard_bytes, hcrc
+
+    def apply_push(self, m) -> bool:
+        """A push built before this OSD's current interval began is
+        dropped unacked (ref: PG::can_discard_replica_op): its position
+        was the holder's slot then, and landing after this interval's
+        position fix it would leave another position's bytes in this
+        slot. So is a push older than the shard it would replace when
+        that shard was written in this interval: a client write landed
+        while the push was built (an older interval's newer shard is a
+        divergent write, and the push rolls it back). The primary's
+        next round pushes again if this shard still needs it."""
+        if m.epoch < self.interval_start:
+            log.dout(1, f"pg {self.pgid} osd.{self.osd.whoami} dropped a "
+                        f"push of {m.oid} from epoch {m.epoch}: this "
+                        f"interval began at {self.interval_start}")
+            return False
+        held = self._stamps(m.oid)
+        held_v = _vparse(held[0]) if held is not None else eversion()
+        pushed = eversion(m.version_epoch, m.version_v)
+        if m.exists and held_v > pushed and \
+                held_v.epoch >= self.interval_start:
+            log.dout(1, f"pg {self.pgid} osd.{self.osd.whoami} dropped a "
+                        f"push of {m.oid} at {pushed}: it holds {held_v}, "
+                        f"written in this interval")
+            return False
+        ok = super().apply_push(m)
+        if ok and m.exists:
+            log.dout(1, f"pg {self.pgid} osd.{self.osd.whoami} took a push "
+                        f"of {m.oid} for position {self._pos_of(m.attrs)} "
+                        f"at {m.version_epoch}'{m.version_v} from "
+                        f"osd.{m.from_osd} (epoch {m.epoch}, slot "
+                        f"{self.my_shard()})")
+        return ok
 
     def make_push(self, oid: str, target: int | None = None):
         raise NotImplementedError("EC pushes are built asynchronously")
@@ -995,12 +1063,18 @@ class ECPG(PG):
 
     async def _recover(self) -> None:
         """Regenerate each missing peer shard from k live shards
-        (ref: ECBackend recovery reads + pushes)."""
-        if not self.is_primary():
+        (ref: ECBackend recovery reads + pushes). A round acts only for
+        the interval whose peering started it (``_recovery_current``),
+        and the PG is clean only once every acting holder stores its own
+        slot's shard (``_stale_positions``): the position fixes of an
+        acting shuffle are part of recovery, not left behind it."""
+        interval = self.interval_start
+        if not self._recovery_current(interval):
             return
         if any(self.peer_missing.values()):
             self.state = "recovering"
         sends: list = []
+        unbuilt = False
         for o, missing in list(self.peer_missing.items()):
             if not self.osd.osd_is_up(o):
                 continue
@@ -1009,20 +1083,74 @@ class ECPG(PG):
                 continue
             for oid in list(missing):
                 push = await self._build_backfill_push(oid, o)
+                if not self._recovery_current(interval):
+                    return
                 if push is not None:
                     sends.append((o, oid, push))
+                else:
+                    unbuilt = True
         # a shard only counts as recovered once ACKED — the gate is
         # shared with the replicated path (PG._send_gated_pushes)
         if await self._send_gated_pushes(sends):
             return
+        loop = asyncio.get_event_loop()
+        if unbuilt:
+            # sources not decodable yet: retried, as an unacked push is
+            loop.call_later(1.0, lambda: asyncio.ensure_future(
+                self._recover()))
+            return
         if not any(self.peer_missing.values()) and \
                 self.state in ("active", "recovering"):
+            stale = await self._stale_positions()
+            if not self._recovery_current(interval):
+                return
+            if stale:
+                newest = self.pg_log.newest_per_object()
+                for o, oids in stale.items():
+                    log.dout(1, f"pg {self.pgid} osd.{o} holds "
+                                f"{len(oids)} shard(s) of another "
+                                f"position; rebuilding them")
+                    if o == self.osd.whoami:
+                        for oid in oids:
+                            await self._pull(o, oid)
+                    else:
+                        self.peer_missing.setdefault(o, {}).update(
+                            {oid: newest.get(oid) for oid in oids})
+                if self._recovery_current(interval):
+                    loop.call_later(0.0, lambda: asyncio.ensure_future(
+                        self._recover()))
+                return
             if self._maybe_start_backfill():
                 return          # clean is decided when backfill ends
             if len(self.live_acting()) >= self.pool.size:
                 self._mark_clean()
             else:
                 self.state = "active"
+
+    async def _stale_positions(self) -> dict[int, list[str]]:
+        """Acting holder -> the objects whose stored shard encodes
+        another position: its ``_pos`` stamp is not the holder's slot
+        (zero-length sub-reads of every peer; this OSD's own store)."""
+        try:
+            oids = [o for o in self.osd.store.list_objects(self.cid)
+                    if o != PGMETA]
+        except StoreError:
+            return {}
+        out: dict[int, list[str]] = {}
+        for slot, osd_id in enumerate(list(self.acting)):
+            if osd_id < 0 or not self.osd.osd_is_up(osd_id):
+                continue
+            if osd_id == self.osd.whoami:
+                bad = [o for o in oids if 0 <= self._stored_pos(o) != slot]
+            else:
+                replies = await asyncio.gather(*[
+                    self._subread(osd_id, o, 0, 0) for o in oids])
+                bad = [o for o, r in zip(oids, replies)
+                       if r is not None and r.exists and
+                       0 <= r.shard_pos != slot]
+            if bad:
+                out[osd_id] = bad
+        return out
 
     # -- stats --------------------------------------------------------------
     def stats(self) -> dict:

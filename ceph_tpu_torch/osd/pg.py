@@ -1533,7 +1533,10 @@ class PG:
         sends: [(peer_osd, oid, MOSDPGPush)]. Retires acked oids from
         peer_missing; returns True (and schedules a retry) when a LIVE
         peer's push went unacked — a down peer is left to the next map
-        change."""
+        change. Also True, retiring nothing, when the round no longer
+        speaks for the PG (``_recovery_current``): the new interval's
+        peering computed its own missing sets."""
+        interval = self.interval_start
         acks: list[tuple[int, str, asyncio.Future, object]] = []
         for o, oid, push in sends:
             fut = asyncio.get_event_loop().create_future()
@@ -1559,6 +1562,7 @@ class PG:
         if acks:
             await asyncio.wait([f for _, _, f, _ in acks], timeout=5.0)
         incomplete = False
+        current = self._recovery_current(interval)
         for o, oid, fut, span in acks:
             self._push_ack_waiters.pop((o, oid), None)
             if span is not None:
@@ -1566,9 +1570,12 @@ class PG:
                     span.tag("unacked", True)
                 span.finish()
             if fut.done():
-                self.peer_missing.get(o, {}).pop(oid, None)
+                if current:
+                    self.peer_missing.get(o, {}).pop(oid, None)
             elif self.osd.osd_is_up(o):
                 incomplete = True
+        if not current:
+            return True
         if incomplete:
             log.dout(1, f"pg {self.pgid} recovery pushes unacked; "
                         "retrying")
@@ -1577,9 +1584,23 @@ class PG:
                 self._recover()))
         return incomplete
 
+    def _recovery_current(self, interval: int) -> bool:
+        """Whether a recovery round begun in ``interval`` still speaks
+        for the PG: that interval is current, this OSD is its primary
+        and its peering activated it. A round of an earlier interval
+        (the round an activation scheduled that starts after the next
+        map, a retry timer, pushes in flight across the map change)
+        leaves the state alone: setting "recovering" over "peering" and
+        then marking the PG clean from the old interval's missing sets
+        would end the new interval's peering (its repeer timer and a
+        newer map's advance re-peer only a PG still "peering"), and a
+        member that joined with it would never get its objects."""
+        return self.interval_start == interval and self.is_primary() \
+            and self.role_active()
+
     async def _recover(self) -> None:
         """Push every peer's missing objects (ref: run_recovery_op)."""
-        if not self.is_primary():
+        if not self._recovery_current(self.interval_start):
             return
         self.state = "recovering" if any(self.peer_missing.values()) \
             else self.state

@@ -397,7 +397,11 @@ class Scrubber:
     async def _deep_ec_check(self, maps,
                              findings: list | None = None) -> list[str]:
         """Deep scrub for EC: regenerate parity from the data shards
-        and compare digests against what the parity shards stored.
+        and compare digests against what the parity shards stored. The
+        data comes from the stored shards, never the residency cache
+        (``_gather(resident=False)``): the cache is keyed by version,
+        not bytes, and would hide a shard that rotted after a read (the
+        reference reads through it).
         ``findings`` (like _compare's) collects structured
         (oid, osd, kind) tuples for the repair path — never re-parsed
         from the error strings."""
@@ -411,7 +415,8 @@ class Scrubber:
                 ver = pg._obj_version(oid)
                 size = entry["logical_size"]
                 count = pg.sinfo.object_stripes(size) or 1
-                data = await pg._gather(oid, 0, count, ver)
+                data = await pg._gather(oid, 0, count, ver,
+                                        resident=False)
             except Exception as e:
                 errors.append(f"{oid}: deep-scrub gather failed ({e})")
                 continue

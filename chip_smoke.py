@@ -193,8 +193,10 @@ hook, the count set to 0 just before the path and read just after:
    rebuild its 128 shards, each equal to the mirror's bytes with its
    ``_hcrc`` and ``_pos``; 16 objects' stored parity equals the native
    C++ backend.
-33. One shard of 16 objects corrupted in its store: a deep scrub flags
-   exactly those 16, repair names each culprit shard and restores it,
+33. One shard of 16 objects corrupted in its store, 8 of them among the
+   last read (at least one resident in the primary's cache; deep scrub
+   reads the stored shards around it): a deep scrub flags exactly those
+   16, repair names each culprit shard and restores it,
    and the sweeps' digests come from one device CRC job per sweep and
    per deep check (``SCRUB_PERF``), equal to zlib; every ladder rung 0,
    and no recovery rebuild failed on the card (``push_device_failures``,
@@ -232,11 +234,16 @@ set to 0 just before the cluster starts:
    from the heartbeat reports.
 45. All 64 objects read degraded (PGs that lost two shards decode two
    erasures) and 64 more overwrites.
-46. One OSD revived (log recovery), the other ``osd out`` (backfill onto
-   the spare); the seconds to clean and the bytes pushed.
-47. One shard of 16 objects corrupted in its OSD's store, none of them
-   resident in its primary's cache; ``pg repair`` of each PG until every
-   shard is restored.
+46. One OSD revived (log recovery), the other ``osd out`` (its slot to
+   another OSD, and some holders change slot); the seconds to clean and
+   the bytes pushed. Then every stored EC shard is its holder's slot's
+   position, stamped so, with the bytes the host mirror gives it
+   (``smoke shards``, ``shard_audit``), and a deep scrub of every EC PG
+   (``smoke deep_scrub``, reading the stored shards) finds nothing.
+47. One shard of 16 objects, picked without regard to residency,
+   corrupted in its OSD's store; ``pg repair`` of each PG until every
+   shard is restored; the audit and the deep scrub of every EC PG again
+   find nothing.
 48. Everything read back equal to the mirror; every PG clean; every
    ladder rung and ``*_device_failures`` counter 0; markdowns only of
    the two stopped OSDs and no election after the quorum formed; every
@@ -3751,18 +3758,21 @@ def ec_pg_path_phase(card: str, spec) -> tuple[int, int]:
         pg = cl.primary()
         bad, saved = {}, {}
         live = [p for p in range(K + M) if pg.acting[p] >= 0]
-        for i, oid in enumerate(oids[:PG_SCRUB_OBJS]):
+        # half from the first objects written, half from the last read
+        # (resident in the primary's cache): deep scrub reads the stored
+        # shards either way
+        half = PG_SCRUB_OBJS // 2
+        for i, oid in enumerate(oids[:half] + oids[-half:]):
             pos = live[int(rng.integers(0, K))] if i % 2 == 0 else \
                 (K, K + 2)[i // 2 % 2]
             obj = cl.osds[pg.acting[pos]].store._obj("1.0", oid)
             saved[oid] = (pos, bytes(obj.data))
             obj.data[int(rng.integers(0, len(obj.data)))] ^= 0x5A
             bad[oid] = pos
-        # the residency cache serves deep scrub's gathers (a reference
-        # fault, ROADMAP Queue C): the corrupted objects must not be
-        # resident, or the scrub cannot see them
-        require(not (resident_oids(cl.osds[pg.osd.whoami]) & set(bad)),
-                "scrub: a corrupted object is resident")
+        rec["scrub_resident_corrupted"] = len(
+            resident_oids(cl.osds[pg.osd.whoami]) & set(bad))
+        require(rec["scrub_resident_corrupted"] > 0,
+                "scrub: no corrupted object is resident")
         sp0 = scrub_mod.SCRUB_PERF.dump()
         log.label = "scrub"
         report = await timed("scrub_deep",
@@ -4034,9 +4044,10 @@ def proc_child(argv: list) -> None:
     child entry point with the phase's hooks around both kernels and both
     aggregators, and adds ``smoke *`` verbs to the daemon's admin socket:
     the step label, the launches held against their plain versions,
-    counters, the tracked table, the residency cache's objects, a
-    shard's bytes, and for a mgr its balancer ticks, promotions and
-    demotions and its prometheus port."""
+    counters, the tracked table, a shard's bytes, every EC shard with
+    its stamps and last writes, a deep scrub of the PGs it leads, and for
+    a mgr its balancer ticks, promotions and demotions and its
+    prometheus port."""
     import os
     # seconds from the parent's spawn (its wall clock, passed down)
     t_start = float(os.environ.get("CHIP_SMOKE_SPAWNED", time.time()))
@@ -4045,7 +4056,8 @@ def proc_child(argv: list) -> None:
     from ceph_tpu_torch.gf import kernels as gkern
     from ceph_tpu_torch.mon.monitor import Monitor
     from ceph_tpu_torch.os_.objectstore import Transaction
-    from ceph_tpu_torch.osd import daemon, pg as pg_mod
+    from ceph_tpu_torch.osd import daemon, ec_pg as ec_pg_mod
+    from ceph_tpu_torch.osd import pg as pg_mod
     from ceph_tpu_torch.osd import scheduler as sched_mod
     from ceph_tpu_torch.osd import scrub as scrub_mod
     from ceph_tpu_torch.osd.recovery import PERF as RECOVERY_PERF
@@ -4061,6 +4073,48 @@ def proc_child(argv: list) -> None:
             pushes["objects"] += 1
         return ok
     pg_mod.PG.apply_push = apply_push
+    # the last writes of every EC shard this daemon holds, by (pg, oid):
+    # what wrote it (a sub-write, a push, an in-place rebuild), when, in
+    # which interval and slot, and the position and version it stamped
+    writes = {}
+    ECPG = ec_pg_mod.ECPG
+
+    def wrote(pg, oid, kind, pos, ver, src):
+        hist = writes.setdefault((str(pg.cid), oid), [])
+        hist.append([round(time.time() - t_start, 3), kind, pg.epoch,
+                     pg.interval_start, pg.my_shard(), pos, ver, src])
+        del hist[:-6]
+    real_sub_write, real_ec_push = ECPG._apply_sub_write, ECPG.apply_push
+    real_rebuild = ECPG._rebuild_shard
+
+    def sub_write(pg, m, local=False):
+        out = real_sub_write(pg, m, local)
+        if out == 0 and not m.remove:
+            wrote(pg, m.oid, "sub_write", ECPG._pos_of(m.attrs),
+                  m.attrs["_v"].hex(), [m.epoch, m.first_stripe,
+                                        len(m.data) // pg.sinfo.chunk_size])
+        return out
+
+    def ec_push(pg, m):
+        ok = real_ec_push(pg, m)
+        if ok and m.exists:
+            wrote(pg, m.oid, "push", ECPG._pos_of(m.attrs),
+                  m.attrs["_v"].hex(), [m.epoch, m.from_osd])
+        return ok
+
+    async def rebuild(pg, oid, shard, ver, size, apply_local=False,
+                      exclude_osds=frozenset()):
+        out = await real_rebuild(pg, oid, shard, ver, size, apply_local,
+                                 exclude_osds)
+        if apply_local:
+            landed = pg._stamps(oid) == (ec_pg_mod._vblob(ver),
+                                         ECPG._pos_attr(shard))
+            wrote(pg, oid, "rebuilt_in_place" if landed else
+                  "rebuild_dropped", shard, ec_pg_mod._vblob(ver).hex(),
+                  sorted(exclude_osds))
+        return out
+    ECPG._apply_sub_write, ECPG.apply_push = sub_write, ec_push
+    ECPG._rebuild_shard = rebuild
     logs = {}
     lag = {"max_s": 0.0, "at": None, "over_half_s": 0, "worst": [],
            "by_step": {}}
@@ -4125,9 +4179,18 @@ def proc_child(argv: list) -> None:
 
         def run(*a):
             try:
-                return fn(*a)
+                out = fn(*a)
             except Exception:
                 return {"error": traceback.format_exc()}
+            if not asyncio.iscoroutine(out):
+                return out
+
+            async def waited():
+                try:
+                    return await out
+                except Exception:
+                    return {"error": traceback.format_exc()}
+            return waited()
         asok.register(name, (lambda cmd: run(cmd)) if
                       fn.__code__.co_argcount else (lambda: run()),
                       "osd_cluster_path probe")
@@ -4210,9 +4273,6 @@ def proc_child(argv: list) -> None:
                                        for t in TABLES}
                               for p in mm._pools}}
 
-        def resident():
-            return sorted({k[1] for k in osd.ec_resident._lru})
-
         def shard(cmd):
             data = bytes(osd.store.read(cmd["cid"], cmd["oid"]))
             return {"crc": zlib.crc32(data), "len": len(data)}
@@ -4223,6 +4283,43 @@ def proc_child(argv: list) -> None:
                         k for k, pg in osd.pgs.items()
                         if pg.is_primary() and pg.state != "clean")}
 
+        def shards():
+            """Every EC shard here: its bytes' crc32 and length, its
+            ``_pos`` and ``_v`` stamps and its last writes, by PG, with
+            the PG's acting set, this OSD's slot and the PG's state."""
+            out = {}
+            for cid, pg in osd.pgs.items():
+                if not isinstance(pg, ECPG):
+                    continue
+                objs = {}
+                for oid in osd.store.list_objects(pg.cid):
+                    if oid == pg_mod.PGMETA:
+                        continue
+                    data = bytes(osd.store.read(pg.cid, oid))
+                    attrs = osd.store.getattrs(pg.cid, oid)
+                    objs[oid] = {"crc": zlib.crc32(data), "len": len(data),
+                                 "pos": ECPG._pos_of(attrs),
+                                 "v": attrs.get("_v", b"").hex(),
+                                 "hist": writes.get((str(pg.cid), oid), [])}
+                posfix = getattr(pg, "_posfix_task", None)
+                out[str(cid)] = {"acting": list(pg.acting),
+                                 "slot": pg.my_shard(), "state": pg.state,
+                                 "epoch": pg.epoch,
+                                 "interval": pg.interval_start,
+                                 "posfix_running": posfix is not None and
+                                 not posfix.done(), "objects": objs}
+            return out
+
+        async def deep_scrub():
+            """A deep scrub of every EC PG this OSD is primary of, one
+            after another: the errors each found."""
+            out = {}
+            for cid, pg in sorted(osd.pgs.items()):
+                if isinstance(pg, ECPG) and pg.is_primary():
+                    res = await pg.scrubber.scrub(deep=True)
+                    out[str(cid)] = res["errors"]
+            return out
+
         def corrupt(cmd):
             cid, oid, off = cmd["cid"], cmd["oid"], int(cmd["offset"])
             data = bytes(osd.store.read(cid, oid))
@@ -4232,13 +4329,25 @@ def proc_child(argv: list) -> None:
                 cid, oid, off, bytes([data[off] ^ 0x5A])))
             return {"crc": zlib.crc32(data), "len": len(data)}
         for name, fn in (("smoke stats", stats), ("smoke table", table),
-                         ("smoke resident", resident),
                          ("smoke shard", shard),
                          ("smoke corrupt", corrupt),
+                         ("smoke shards", shards),
+                         ("smoke deep_scrub", deep_scrub),
                          ("smoke epoch", epoch),
                          ("smoke repairs", lambda: repairs)):
             register(osd.asok, name, fn)
 
+    # every election this mon won: its epoch, quorum and second, so a
+    # split (two mons winning one epoch) shows after it has healed
+    from ceph_tpu_torch.mon.elector import Elector
+    wins = []
+    real_victory = Elector._declare_victory
+
+    async def declare_victory(el):
+        quorum = sorted(el.acks)
+        await real_victory(el)
+        wins.append([el.epoch, quorum, round(time.time() - t_start, 3)])
+    Elector._declare_victory = declare_victory
     slow_cmds = []
     real_cmd = Monitor.handle_command
 
@@ -4258,8 +4367,12 @@ def proc_child(argv: list) -> None:
         base = common(mon.asok, time.time() - t_start)
         register(mon.asok, "smoke stats", lambda: {
             **base, "wire": [mon.msgr.wire], "devices": [str(mon.device)],
-            "election_epoch": mon.elector.epoch,
+            "election_epoch": mon.elector.epoch, "wins": wins,
             "leader": mon.is_leader(), "quorum": list(mon.quorum),
+            "state": mon.state, "paxos": {
+                "active": mon.paxos.active, "pn": mon.paxos.pn,
+                "accepted_pn": mon.paxos.accepted_pn,
+                "last_committed": mon.paxos.last_committed},
             "first_launches": devmon().functions, "loop_lag": dict(lag),
             "fsync": dict(fsyncs), "slow_commands": slow_cmds})
     # the mgr: every balancer tick's outcome, and each promotion and
@@ -4442,39 +4555,124 @@ def smoke_cluster(child_log, here: str, on_cpu=("mon.",), clients=()):
     return SmokeCluster
 
 
+async def mon_splits(c, card: str, what: str) -> list:
+    """After a failed start of ``c``: prints every mon's election record
+    (state, quorum, the epochs it won, its paxos round, its slow
+    commands and worst loop stalls) and returns the splits it shows,
+    each ``[[mon, epoch, quorum], ...]``: the mons that won one epoch,
+    or, when none did, those that lead now, if two or more."""
+    record, won, leading = {}, {}, []
+    for n in sorted(n for n in c.children if n.startswith("mon.")):
+        try:
+            out = await asyncio.wait_for(
+                c.daemon_command(n, "smoke stats"), 5)
+        except (OSError, ValueError, asyncio.TimeoutError) as e:
+            record[n] = {"unanswered": repr(e)}
+            continue
+        record[n] = {k: out.get(k) for k in (
+            "state", "quorum", "election_epoch", "wins", "paxos",
+            "slow_commands")}
+        record[n]["stalls"] = (out.get("loop_lag") or {}).get("worst")
+        for epoch, quorum, _t in out.get("wins") or []:
+            won.setdefault(epoch, []).append([n, epoch, quorum])
+        if out.get("leader"):
+            leading.append([n, out.get("election_epoch"),
+                            out.get("quorum")])
+    print(f"[{card}] {what}: the start failed; the mons: "
+          f"{json.dumps(record)}", flush=True)
+    splits = [ws for _e, ws in sorted(won.items()) if len(ws) > 1]
+    if len(leading) > 1 and not splits:
+        splits.append(leading)
+    return splits
+
+
 async def start_cluster(c, make, timed, card: str, what: str):
     """Starts ``c`` (the step ``start``) and returns it. A start that
-    fails while two mons each lead, the reference's elector fault that
-    the port keeps (ROADMAP Queue C: a mon acks two proposers of one
-    epoch), stops ``c`` and starts ``make()`` in its place, once. The
-    returned cluster's ``split_starts`` lists each split's leaders."""
+    fails after two mons won one election epoch, or while two lead,
+    the reference's elector fault that the port keeps (ROADMAP Queue
+    C: a mon acks two proposers of one epoch), stops ``c`` and starts
+    ``make()`` in its place, once. Any other failed start raises. The
+    returned cluster's ``split_starts`` lists each split seen."""
     try:
         await timed("start", c.start())
         c.split_starts = []
         return c
     except Exception:
-        leaders = []
-        for n in [n for n in c.children if n.startswith("mon.")]:
-            try:
-                out = await asyncio.wait_for(
-                    c.daemon_command(n, "smoke stats"), 5)
-            except (OSError, asyncio.TimeoutError):
-                continue
-            if out.get("leader"):
-                leaders.append([n, out["election_epoch"], out["quorum"]])
-        if len(leaders) < 2:
+        splits = await mon_splits(c, card, what)
+        if not splits:
             raise
-        print(f"[{card}] {what}: the start failed with two leaders "
-              f"{leaders}; a fresh cluster starts once", flush=True)
+        print(f"[{card}] {what}: the start failed after a split "
+              f"{splits}; a fresh cluster starts once", flush=True)
         await c.stop()
     fresh = make()
     try:
         await timed("start", fresh.start())
+    except Exception:
+        await mon_splits(fresh, card, what)
+        await fresh.stop()
+        raise
     except BaseException:
         await fresh.stop()
         raise
-    fresh.split_starts = [leaders]
+    fresh.split_starts = splits
     return fresh
+
+
+def shard_crcs(objs: dict, device: str) -> dict:
+    """oid -> the crc32 of each of the K + M shards of its bytes under
+    the pool's k=8 m=3 ``reed_sol_van`` code, the parity from
+    ``gf_encode_plain`` (the kernel's plain version) on ``device``."""
+    from ceph_tpu_torch.ec import matrix as rs
+    from ceph_tpu_torch.gf import kernels as gkern
+    from ceph_tpu_torch.gf import tables
+    bm = torch.as_tensor(tables.expand_bitmatrix(
+        rs.coding_matrix("reed_sol_van", K, M)), device=device)
+    out = {}
+    for oid, data in objs.items():
+        stripes = np.frombuffer(bytearray(data), dtype=np.uint8).reshape(
+            -1, K, OBJ_C)
+        parity = gkern.gf_encode_plain(bm, torch.as_tensor(
+            stripes, device=device)).cpu().numpy()
+        out[oid] = [zlib.crc32(stripes[:, j].tobytes()) for j in range(K)] \
+            + [zlib.crc32(parity[:, j].tobytes()) for j in range(M)]
+    return out
+
+
+def shard_audit(held: dict, want: dict, where: dict) -> list:
+    """Every EC shard each OSD holds against the bytes its object's
+    mirror gives: ``held`` maps an OSD's name to its ``smoke shards``
+    answer, ``want`` an object to ``shard_crcs``, ``where`` an object to
+    its PG. A shard is right when its ``_pos`` stamp is its holder's
+    slot in the PG's acting set and its bytes are that position's; each
+    slot of every object must hold one. Returns what is not, each with
+    the holder's record (its last writes, the PG's state)."""
+    found = []
+    covered = {}
+    for name, pgs in sorted(held.items()):
+        for cid, pg in pgs.items():
+            if pg["slot"] < 0:
+                continue                # a stray's leftovers, not shards
+            for oid, sh in pg["objects"].items():
+                if oid not in want or where.get(oid) != cid:
+                    continue
+                crcs = want[oid]
+                covered.setdefault((cid, oid), set()).add(pg["slot"])
+                if pg["slot"] == sh["pos"] and crcs[sh["pos"]] == sh["crc"]:
+                    continue
+                found.append({
+                    "osd": name, "pg": cid, "oid": oid, "slot": pg["slot"],
+                    "pos": sh["pos"], "v": sh["v"], "len": sh["len"],
+                    "bytes_of": [j for j, c in enumerate(crcs)
+                                 if c == sh["crc"]],
+                    "hist": sh["hist"], "acting": pg["acting"],
+                    "state": pg["state"], "interval": pg["interval"],
+                    "posfix_running": pg["posfix_running"]})
+    for oid, cid in where.items():
+        slots = covered.get((cid, oid), set())
+        if slots != set(range(K + M)):
+            found.append({"pg": cid, "oid": oid, "absent_slots": sorted(
+                set(range(K + M)) - slots)})
+    return found
 
 
 def osd_cluster_path_phase(card: str, pool) -> dict:
@@ -4740,19 +4938,45 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
             seeds = np.arange(CL_EC_PGS, dtype=np.uint32)
             _u, _up, acting, actp = om.pg_to_up_acting_osds(pid, seeds)
             acting, actp = np.asarray(acting), np.asarray(actp)
-            held = {}
-            for o in sorted({int(x) for x in actp}):
-                held[o] = set(await ask(f"osd.{o}", "smoke resident"))
-            pick = []
-            for oid in mirror:
-                seed, primary = real_ct(om, pid, oid)
-                if oid not in held[int(actp[seed])]:
-                    pick.append((oid, seed))
-                if len(pick) == CL_CORRUPT:
-                    break
-            require(len(pick) == CL_CORRUPT,
-                    f"osd cluster: only {len(pick)} objects are not resident "
-                    f"on their primary")
+            where = {oid: f"{pid}.{real_ct(om, pid, oid)[0]:x}"
+                     for oid in mirror}
+            live_osds = [n for n in c.children
+                         if n.startswith("osd.") and n not in dead]
+
+            async def audit(what):
+                """Every stored shard against the mirror's bytes for its
+                slot, then a deep scrub of every EC PG (reading the
+                stored shards): both must find nothing."""
+                t1 = time.perf_counter()
+                held = dict(zip(live_osds, await asyncio.gather(*[
+                    ask(n, "smoke shards") for n in live_osds])))
+                bad = shard_audit(held, want, where)
+                t2 = time.perf_counter()
+                scrubs = {}
+                for out in await asyncio.gather(*[
+                        ask(n, "smoke deep_scrub") for n in live_osds]):
+                    scrubs.update(out)
+                host_s[f"deep_scrub_{what}"] = time.perf_counter() - t2
+                errors = {g: e for g, e in scrubs.items() if e}
+                rec[f"audit_{what}"] = {
+                    "shards": sum(len(o["objects"]) for pgs in held.values()
+                                  for o in pgs.values()),
+                    "bad": bad[:24], "n_bad": len(bad),
+                    "audit_s": t2 - t1, "scrubbed_pgs": len(scrubs),
+                    "deep_scrub_s": host_s[f"deep_scrub_{what}"],
+                    "scrub_errors": {g: e[:6] for g, e in errors.items()}}
+                print(f"[{card}] osd_cluster_path audit {what}: "
+                      f"{json.dumps(rec[f'audit_{what}'])}", flush=True)
+                require(not bad, f"osd cluster: {len(bad)} stored shards "
+                                 f"differ from their slot's bytes ({what})")
+                require(len(scrubs) == CL_EC_PGS and not errors,
+                        f"osd cluster: deep scrub of {len(scrubs)} EC PGs "
+                        f"found errors in {sorted(errors)} ({what})")
+            want = shard_crcs(mirror, "cuda")
+            await audit("after_recovery")
+            picked = rng.choice(len(mirror), CL_CORRUPT, replace=False)
+            pick = [(oid, real_ct(om, pid, oid)[0]) for oid in
+                    [list(mirror)[int(i)] for i in sorted(picked)]]
             saved = {}
             for oid, seed in pick:
                 pos = int(rng.integers(0, K + M))
@@ -4763,12 +4987,6 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
                                            rng.integers(0, OBJ_SIZE // K))})
                 saved[(name, cid, oid)] = out["crc"]
             rec["corrupted"] = [list(k) for k in saved]
-            # deep scrub reads through the residency cache (a reference
-            # fault, ROADMAP Queue C): none of these may be resident
-            for oid, seed in pick:
-                now = await ask(f"osd.{int(actp[seed])}", "smoke resident")
-                require(oid not in now,
-                        f"osd cluster: corrupted {oid} is resident")
             t0 = time.perf_counter()
             asks = rec["repair_asks"] = {}
             runs = rec["repair_runs"] = {}
@@ -4819,6 +5037,7 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
             print(f"[{card}] osd_cluster_path repair: "
                   f"{host_s['repair']:.3f} s", flush=True)
             rec["repaired_pgs"] = len({s for _o, s in pick})
+            await audit("after_repair")
 
             # -- 48. read everything back -------------------------------------
             await label("final_read")
@@ -6966,10 +7185,54 @@ def multi_device_path_phase(card: str) -> dict:
                 gf=(sum(launches["gf"].values()), glog.worst))
 
 
+def osd_cluster_runs(n: int, budget: float) -> None:
+    """``osd_cluster_path`` alone, ``n`` times in a row (no new run
+    starts after ``budget`` seconds): the phase's gates, each run's
+    outcome on a line, and the daemons' log of a failed run kept as
+    ``build/osd_cluster_path.<run>.log``. Exits 1 if any run failed."""
+    import shutil
+    import traceback
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        sys.exit(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from ceph_tpu_torch.utils import cuda_build
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    cuda_build.build(["gf_encode", "crush_straw2"])
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0, runs = time.perf_counter(), []
+    with multiprocessing.get_context("spawn").Pool(8) as pool:
+        for i in range(n):
+            if time.perf_counter() - t0 > budget:
+                break
+            t1 = time.perf_counter()
+            try:
+                osd_cluster_path_phase(card, pool)
+                runs.append({"run": i, "ok": True})
+            except Exception as e:
+                traceback.print_exc()
+                runs.append({"run": i, "ok": False, "why": str(e)[:400]})
+                shutil.copy(os.path.join(here, CL_LOG), os.path.join(
+                    here, f"build/osd_cluster_path.{i}.log"))
+            runs[-1]["s"] = time.perf_counter() - t1
+            print(f"[{card}] osd_cluster_runs: {json.dumps(runs[-1])}",
+                  flush=True)
+    print(f"[{card}] osd_cluster_runs: {sum(r['ok'] for r in runs)} of "
+          f"{len(runs)} passed", flush=True)
+    sys.exit(0 if runs and all(r["ok"] for r in runs) else 1)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--proc-child"]:
         proc_child(sys.argv[2:])
     elif sys.argv[1:2] == ["--cli-child"]:
         cli_child(sys.argv[2:])
+    elif sys.argv[1:2] == ["--osd-cluster-runs"]:
+        osd_cluster_runs(int(sys.argv[2]), float(sys.argv[3])
+                         if len(sys.argv) > 3 else float("inf"))
     else:
         main()

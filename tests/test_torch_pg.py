@@ -405,3 +405,44 @@ def test_smoke_starts_again_only_after_a_split(leaders, restarted):
                                       ["mon.b", 4, [0, 2]]]]
                                     if restarted else [])
     asyncio.run(go())
+
+
+class _HealedSplit(_StartCluster):
+    """A failed start after mon.a and mon.b both won epoch 4 (quorums
+    [0, 2] and [1, 2]); by the time the smoke looks, mon.a won epoch 6
+    and leads alone."""
+
+    async def daemon_command(self, name, cmd):
+        if name == "mon.c":
+            return {"leader": False, "election_epoch": 6, "wins": []}
+        wins = {"mon.a": [[4, [0, 2], 8.1], [6, [0, 1, 2], 10.4]],
+                "mon.b": [[4, [1, 2], 8.2]]}[name]
+        return {"leader": name == "mon.a", "election_epoch": 6,
+                "quorum": [0, 1, 2], "wins": wins}
+
+
+@pytest.mark.parametrize("wins_seen", [True, False])
+def test_smoke_starts_again_after_a_healed_split(wins_seen):
+    """A split that healed before the smoke looked still starts a fresh
+    cluster, once, read from the epochs each mon won; without that
+    record one leader is no split, and the failure raises."""
+    async def timed(what, coro):
+        return await coro
+
+    class Healed(_HealedSplit):
+        async def daemon_command(self, name, cmd):
+            out = await super().daemon_command(name, cmd)
+            return out if wins_seen else dict(out, wins=[])
+
+    async def go():
+        c = Healed(leaders=set())
+        if not wins_seen:
+            with pytest.raises(TimeoutError):
+                await cs.start_cluster(c, _StartCluster, timed, "cpu", "t")
+            assert c.stops == 0
+            return
+        got = await cs.start_cluster(c, _StartCluster, timed, "cpu", "t")
+        assert got is not c and c.stops == 1
+        assert got.split_starts == [[["mon.a", 4, [0, 2]],
+                                     ["mon.b", 4, [1, 2]]]]
+    asyncio.run(go())
