@@ -27,7 +27,8 @@ from ceph_tpu_torch.mon.messages import (
     MMonElection, MMonGetOSDMap, MMonMap, MMonPaxos,
     MMonProposeForward, MMonSubscribe, MOSDAlive, MOSDBoot,
     MOSDFailure, MOSDMap, MOSDMarkMeDown, MOSDPGReadyToMerge, MPGStats,
-    MTraceReport,
+    MTraceReport, PAXOS_ACCEPT, PAXOS_BEGIN, PAXOS_CATCHUP, PAXOS_COLLECT,
+    PAXOS_LAST, PAXOS_LEASE,
 )
 from ceph_tpu_torch.mon.paxos import Paxos
 from ceph_tpu_torch.mon.store import MonitorDBStore
@@ -309,8 +310,7 @@ class Monitor(Dispatcher):
         if self._mgr_report_task:
             self._mgr_report_task.cancel()
             self._mgr_report_task = None
-        if self.elector._timer:
-            self.elector._timer.cancel()
+        self.elector.cancel_timer()
         if self.asok:
             await self.asok.stop()
             self.asok = None
@@ -319,8 +319,21 @@ class Monitor(Dispatcher):
     def is_leader(self) -> bool:
         return self.state == "leader"
 
+    def join_election(self) -> None:
+        """This mon takes part in an election: it leads and follows no
+        one until it ends, and its paxos round is over (ref:
+        Monitor::join_election -> _reset -> Paxos::restart). Without it a
+        leader that called an election went on proposing while its peons
+        elected."""
+        if self._removed:
+            return
+        self.state = "electing"
+        self.paxos.restart()
+
     def request_election(self) -> None:
+        """ref: Monitor::start_election."""
         if not self._stopped and not self._removed:
+            self.join_election()
             asyncio.ensure_future(self.elector.start())
 
     # -- monmap following (MonmapMonitor commits land here) ----------------
@@ -338,9 +351,8 @@ class Monitor(Dispatcher):
             if not self._removed:
                 self._removed = True
                 self.state = "removed"
-                self.elector.electing = False
-                if self.elector._timer:
-                    self.elector._timer.cancel()
+                self.elector.electing_me = False
+                self.elector.cancel_timer()
                 log.dout(1, f"mon.{self.name} removed from monmap "
                             f"epoch {new.epoch}; retiring")
             return
@@ -366,10 +378,14 @@ class Monitor(Dispatcher):
 
     # -- election outcomes -------------------------------------------------
     async def win_election(self, epoch: int, quorum: list[int]) -> None:
+        if self.elector.epoch != epoch:
+            return                    # a new election began meanwhile
         self.state = "leader"
         self.leader_rank = self.rank
         self.quorum = quorum
         ok = await self.paxos.leader_collect()
+        if self.state != "leader" or self.elector.epoch != epoch:
+            return                    # an election ended this reign
         if not ok:
             self.request_election()
             return
@@ -599,7 +615,24 @@ class Monitor(Dispatcher):
             await self.elector.handle(msg)
         elif isinstance(msg, MMonPaxos):
             msg.src_rank = self._src_rank(msg)
-            await self.paxos.dispatch(msg)
+            if self._paxos_msg_current(msg):
+                await self.paxos.dispatch(msg)
+
+    def _paxos_msg_current(self, msg) -> bool:
+        """Whether a paxos message belongs to this mon's reign. The wire
+        carries no election epoch (ref: Monitor::dispatch_op drops a
+        MMonPaxos of another epoch), so the mon's state stands in: a
+        peon takes a leader's messages from its leader only, and a
+        leader takes replies only while it leads, from its quorum. What
+        else comes is from a reign that an election has ended: the
+        election's PROPOSE reached each mon of the new quorum before any
+        COLLECT of its winner. A COMMIT is final and taken from anyone."""
+        op, src = msg.op, msg.src_rank
+        if op in (PAXOS_COLLECT, PAXOS_BEGIN, PAXOS_LEASE):
+            return self.state == "peon" and src == self.leader_rank
+        if op in (PAXOS_LAST, PAXOS_ACCEPT, PAXOS_CATCHUP):
+            return self.is_leader() and src in self.quorum
+        return True
 
     async def ms_handle_reset(self, conn) -> None:
         self.subs.pop(conn, None)

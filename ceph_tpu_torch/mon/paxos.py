@@ -14,12 +14,19 @@ multi-Paxos with a stable leader:
   applies the transaction, so every mon's kv is a replica of the log
   prefix (ref: Paxos::commit_finish applying to MonitorDBStore);
 - the leader extends its authority with LEASE messages; a peon whose
-  lease expires calls a new election (ref: Paxos::lease_timeout).
+  lease expires calls a new election (ref: Paxos::lease_timeout);
+- a peon answers a COLLECT below the pn it accepted with a LAST carrying
+  that pn, and the leader collects again above it at once (ref:
+  Paxos::handle_collect, handle_last -> collect(last->pn));
+- a mon that joins an election restarts its round (ref: Paxos::restart):
+  a collect or begin in flight ends at once, without a timeout and
+  without calling another election.
 
 Fail-stop model (matching the reference's deployment assumptions):
 monitors crash and restart with their store intact; no byzantine peers.
 
-The port's copy of ``ceph_tpu/mon/paxos.py``.
+The port's copy of ``ceph_tpu/mon/paxos.py``, with the old-pn answer and
+the restart that the reference lacks.
 """
 
 from __future__ import annotations
@@ -58,6 +65,17 @@ class Paxos:
         self._pending_version = 0
         self._propose_lock = asyncio.Lock()
         self.lease_deadline = 0.0
+        self._round = 0                   # bumped by restart()
+
+    def restart(self) -> None:
+        """The mon joined an election (ref: Paxos::restart): this round
+        is over. A collect or begin waiting on its peers returns False now;
+        nothing of this round activates paxos again."""
+        self._round += 1
+        self.active = False
+        for waiter in (self._collect_waiter, self._accept_waiter):
+            if waiter is not None and not waiter.done():
+                waiter.set_result(None)
 
     # -- helpers -----------------------------------------------------------
     def _vkey(self, v: int) -> str:
@@ -95,49 +113,68 @@ class Paxos:
     # -- leader: phase 1 ---------------------------------------------------
     async def leader_collect(self) -> bool:
         """Run COLLECT; returns True when the quorum is synchronized and
-        this paxos is active (ref: Paxos::collect)."""
+        this paxos is active (ref: Paxos::collect). A peon that accepted
+        a higher pn answers with it, and the round starts again above it;
+        a restart ends the round with False."""
         self.active = False
-        # pn unique to this (attempt, rank)
-        self.pn = ((max(self.accepted_pn, self.pn) // 100 + 1) * 100
-                   + self.mon.rank)
-        self._store_pn(self.pn)
-        self._collected = {self.mon.rank}
-        peons = [r for r in self.mon.quorum if r != self.mon.rank]
-        if not peons:
-            await self._finish_collect()
-            return True
-        fut = asyncio.get_event_loop().create_future()
-        self._collect_waiter = fut
-        for r in peons:
-            await self.mon.send_mon(r, MMonPaxos(
-                op=PAXOS_COLLECT, pn=self.pn,
-                last_committed=self.last_committed, version=0, value=b"",
-                uncommitted_pn=0, extra={}))
-        try:
-            await asyncio.wait_for(fut, timeout=self.mon.paxos_timeout)
-        except asyncio.TimeoutError:
-            log.dout(1, f"mon.{self.mon.rank} collect timed out")
-            return False
-        finally:
-            self._collect_waiter = None
-        await self._finish_collect()
-        return True
+        rnd = self._round
+        above = 0
+        while True:
+            # pn unique to this (attempt, rank), above every pn seen
+            self.pn = ((max(self.accepted_pn, self.pn, above) // 100 + 1)
+                       * 100 + self.mon.rank)
+            self._store_pn(self.pn)
+            self._collected = {self.mon.rank}
+            peons = [r for r in self.mon.quorum if r != self.mon.rank]
+            if not peons:
+                break
+            fut = asyncio.get_event_loop().create_future()
+            self._collect_waiter = fut
+            for r in peons:
+                await self.mon.send_mon(r, MMonPaxos(
+                    op=PAXOS_COLLECT, pn=self.pn,
+                    last_committed=self.last_committed, version=0,
+                    value=b"", uncommitted_pn=0, extra={}))
+            try:
+                got = await asyncio.wait_for(
+                    fut, timeout=self.mon.paxos_timeout)
+            except asyncio.TimeoutError:
+                log.dout(1, f"mon.{self.mon.rank} collect timed out")
+                return False
+            finally:
+                self._collect_waiter = None
+            if got is None or self._round != rnd:
+                return False                  # restarted: an election
+            if got is True:
+                break
+            above = got                       # a peon's higher pn
+            log.dout(5, f"mon.{self.mon.rank} collect again above {got}")
+        return await self._finish_collect(rnd)
 
-    async def _finish_collect(self) -> None:
+    async def _finish_collect(self, rnd: int) -> bool:
         # re-propose any surrendered uncommitted value (ref: collect
         # finishing with uncommitted -> begin); under the propose lock
         # so a concurrent propose() cannot reuse the same version
         async with self._propose_lock:
+            if self._round != rnd:
+                return False
             self.active = True
             if self.uncommitted is not None and \
                     self.uncommitted[0] == self.last_committed + 1:
                 version, _pn, value = self.uncommitted
                 await self._begin(version, value)
+            return True
 
     async def handle_collect(self, m: MMonPaxos) -> None:
         """Peon side (ref: Paxos::handle_collect)."""
         if m.pn < self.accepted_pn:
-            return  # stale proposer; ignore (it will time out)
+            # an old pn: answer with the one we accepted, so the leader
+            # collects again above it instead of timing out
+            await self.mon.send_mon(m.src_rank, MMonPaxos(
+                op=PAXOS_LAST, pn=self.accepted_pn,
+                last_committed=self.last_committed, version=0, value=b"",
+                uncommitted_pn=0, extra={}))
+            return
         self._store_pn(m.pn)
         self.active = True                # synchronized under this pn
         uc_v, uc_pn, uc_val = 0, 0, b""
@@ -158,6 +195,12 @@ class Paxos:
 
     async def handle_last(self, m: MMonPaxos) -> None:
         """Leader side (ref: Paxos::handle_last)."""
+        waiter = self._collect_waiter
+        if m.pn > self.pn:
+            # the peon accepted a higher pn: collect again above it now
+            if waiter is not None and not waiter.done():
+                waiter.set_result(m.pn)
+            return
         if m.pn != self.pn:
             return
         # adopt any commits a peon has that we lack
@@ -229,6 +272,7 @@ class Paxos:
         # note: children of local-only roots are not created)
         traced = span is not None and span.trace_id
         if peons:
+            rnd = self._round
             fut = asyncio.get_event_loop().create_future()
             self._accept_waiter = fut
             accept_span = span.child(
@@ -240,8 +284,8 @@ class Paxos:
                     last_committed=self.last_committed, version=version,
                     value=value, uncommitted_pn=0, extra={}))
             try:
-                await asyncio.wait_for(fut,
-                                       timeout=self.mon.paxos_timeout)
+                got = await asyncio.wait_for(
+                    fut, timeout=self.mon.paxos_timeout)
             except asyncio.TimeoutError:
                 log.dout(1, f"mon.{self.mon.rank} begin v{version} "
                             f"timed out; calling election")
@@ -253,6 +297,11 @@ class Paxos:
                 return False
             finally:
                 self._accept_waiter = None
+            if got is None or self._round != rnd:
+                # restarted: the next leader's collect recovers the value
+                if accept_span is not None:
+                    accept_span.tag("restarted", True).finish()
+                return False
             if accept_span is not None and not accept_span.finished:
                 accept_span.finish()
         # all quorum members accepted: commit

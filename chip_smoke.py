@@ -108,7 +108,8 @@ is held against its plain version by the same hook; the count is set to
    PGs per pool equal ``mapper_ref`` + the pipeline, and ``osd getmap``
    is byte-equal on both surviving mons and the client's map.
 40. The client's epochs are contiguous; no election beyond the quorum's
-   forming and the failover's. One ``mon_path`` JSON line.
+   forming and the failover's, and no epoch won by two mons. One
+   ``mon_path`` JSON line.
 
 Then the OSD's erasure-code data plane, at full width (k=8 m=3,
 ``reed_sol_van``; ``ec_plane_phases``), each path driven with the
@@ -220,7 +221,10 @@ hooks around both kernels in its process and answers ``smoke *`` verbs
 on its admin socket; every gf_encode and crush_straw2 launch of the
 phase is timed (CUDA events) and held against its plain version there,
 each daemon's counts start at 0 with its process and the client's are
-set to 0 just before the cluster starts:
+set to 0 just before the cluster starts. Each cluster start prints its
+seconds, elections, paxos timeouts and slow commands, and fails, as the
+path's end does, when two mons won one election epoch; no cluster is
+started again:
 
 41. A k=8 m=3 ``reed_sol_van`` profile (``crush-failure-domain=host``,
    ``stripe_unit`` 4096) and an ``erasure`` pool of 32 PGs on it, and a
@@ -419,6 +423,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import logging
 import multiprocessing
 import os
 import subprocess
@@ -485,6 +490,28 @@ def mark(what: str) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip smoke failed: {what}")
+
+
+class PaxosTimeouts(logging.Handler):
+    """Counts this process's paxos collect and begin timeouts (``n``),
+    from the lines the mons' paxos logs for each, in both packages,
+    until ``close``."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = {"collect": 0, "begin": 0}
+        logging.getLogger("ceph_tpu").addHandler(self)
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if "collect timed out" in msg:
+            self.n["collect"] += 1
+        elif "timed out; calling election" in msg:
+            self.n["begin"] += 1
+
+    def close(self):
+        logging.getLogger("ceph_tpu").removeHandler(self)
+        super().close()
 
 
 def random_bytes(shape, seed: int) -> torch.Tensor:
@@ -2413,12 +2440,13 @@ async def _mon_server(conn, dirs) -> None:
     for rank, name in enumerate(MON_NAMES):
         monmap.add(name, rank, "127.0.0.1", 0)
     mons, stores, wins, commits = [], [], [], {}
+    timeouts = PaxosTimeouts()
 
     def watch(mon):
         win, apply = mon.win_election, mon.apply_paxos_value
 
         async def counted_win(epoch, quorum):
-            wins.append((time.monotonic(), mon.name, list(quorum)))
+            wins.append((time.monotonic(), mon.name, list(quorum), epoch))
             await win(epoch, quorum)
 
         def stamped_apply(version, value):
@@ -2470,6 +2498,7 @@ async def _mon_server(conn, dirs) -> None:
                 "quorum": leader.quorum if leader else [],
                 "active": bool(leader and leader.paxos.active),
                 "elections": wins,
+                "paxos_timeouts": timeouts.n,
                 "last_committed": {m.name: m.paxos.last_committed
                                    for m in live},
                 "paxos_commits": {m.name: m.perf.dump()["paxos_commits"]
@@ -2619,6 +2648,14 @@ def mon_path_phase(card: str, pool) -> tuple[int, int]:
                 await asyncio.sleep(0.05)
             rec = {"startup_elections": len(s["elections"]),
                    "quorum_formed_s": time.monotonic() - t0}
+            start = {"s": rec["quorum_formed_s"],
+                     "elections": rec["startup_elections"],
+                     "split_epochs": split_epochs(
+                         [(w[1], w[3]) for w in s["elections"]]),
+                     **{f"{k}_timeouts": v
+                        for k, v in s["paxos_timeouts"].items()}}
+            print(f"[{card}] mon_path start: {json.dumps(start)}",
+                  flush=True)
             mc = MonClient("client.admin", MonMap.decode(mm_blob))
             try:
                 return await run_stream(mp, mc, s, rec, log)
@@ -2970,6 +3007,9 @@ def mon_path_phase(card: str, pool) -> tuple[int, int]:
                 and last_e == om.epoch,
                 f"mon_path: the client's epochs skip "
                 f"{sorted(set(range(first, last_e + 1)) - covered)[:8]}")
+        splits = split_epochs([(w[1], w[3]) for w in s4["elections"]])
+        require(not splits, f"mon_path: epochs won by two mons: {splits}; "
+                            f"{s4['elections']}")
         elections = len(s4["elections"]) - rec["startup_elections"]
         require(elections == 1, f"mon_path: {elections} elections after "
                                 f"the quorum formed, want 1 (the failover):"
@@ -3001,7 +3041,8 @@ def mon_path_phase(card: str, pool) -> tuple[int, int]:
                 k: v for k, v in failover.items() if not k.startswith("t_")},
             "balancer": balancer, "osd_map_s": osd_map_s,
             "elections": {"to_form_quorum": rec["startup_elections"],
-                          "after": elections},
+                          "after": elections, "split_epochs": splits,
+                          "paxos_timeouts": s4["paxos_timeouts"]},
             "paxos_commits": s4["paxos_commits"],
             "last_committed": s4["last_committed"],
             "wire": wire,
@@ -4338,16 +4379,16 @@ def proc_child(argv: list) -> None:
             register(osd.asok, name, fn)
 
     # every election this mon won: its epoch, quorum and second, so a
-    # split (two mons winning one epoch) shows after it has healed
-    from ceph_tpu_torch.mon.elector import Elector
+    # split (two mons winning one epoch) shows after it has healed; and
+    # its paxos collect and begin timeouts
     wins = []
-    real_victory = Elector._declare_victory
+    real_win = Monitor.win_election
 
-    async def declare_victory(el):
-        quorum = sorted(el.acks)
-        await real_victory(el)
-        wins.append([el.epoch, quorum, round(time.time() - t_start, 3)])
-    Elector._declare_victory = declare_victory
+    async def win_election(mon, epoch, quorum):
+        wins.append([epoch, sorted(quorum), round(time.time() - t_start, 3)])
+        await real_win(mon, epoch, quorum)
+    Monitor.win_election = win_election
+    timeouts = PaxosTimeouts()
     slow_cmds = []
     real_cmd = Monitor.handle_command
 
@@ -4368,6 +4409,7 @@ def proc_child(argv: list) -> None:
         register(mon.asok, "smoke stats", lambda: {
             **base, "wire": [mon.msgr.wire], "devices": [str(mon.device)],
             "election_epoch": mon.elector.epoch, "wins": wins,
+            "paxos_timeouts": timeouts.n,
             "leader": mon.is_leader(), "quorum": list(mon.quorum),
             "state": mon.state, "paxos": {
                 "active": mon.paxos.active, "pn": mon.paxos.pn,
@@ -4555,13 +4597,11 @@ def smoke_cluster(child_log, here: str, on_cpu=("mon.",), clients=()):
     return SmokeCluster
 
 
-async def mon_splits(c, card: str, what: str) -> list:
-    """After a failed start of ``c``: prints every mon's election record
-    (state, quorum, the epochs it won, its paxos round, its slow
-    commands and worst loop stalls) and returns the splits it shows,
-    each ``[[mon, epoch, quorum], ...]``: the mons that won one epoch,
-    or, when none did, those that lead now, if two or more."""
-    record, won, leading = {}, {}, []
+async def mon_records(c) -> dict:
+    """Every mon's election record from its ``smoke stats``: state,
+    quorum, election epoch, the epochs it won, its paxos round and
+    timeouts, its slow commands and worst loop stall."""
+    record = {}
     for n in sorted(n for n in c.children if n.startswith("mon.")):
         try:
             out = await asyncio.wait_for(
@@ -4571,51 +4611,87 @@ async def mon_splits(c, card: str, what: str) -> list:
             continue
         record[n] = {k: out.get(k) for k in (
             "state", "quorum", "election_epoch", "wins", "paxos",
-            "slow_commands")}
+            "paxos_timeouts", "slow_commands")}
         record[n]["stalls"] = (out.get("loop_lag") or {}).get("worst")
-        for epoch, quorum, _t in out.get("wins") or []:
-            won.setdefault(epoch, []).append([n, epoch, quorum])
-        if out.get("leader"):
-            leading.append([n, out.get("election_epoch"),
-                            out.get("quorum")])
-    print(f"[{card}] {what}: the start failed; the mons: "
-          f"{json.dumps(record)}", flush=True)
-    splits = [ws for _e, ws in sorted(won.items()) if len(ws) > 1]
-    if len(leading) > 1 and not splits:
-        splits.append(leading)
-    return splits
+    return record
 
 
-async def start_cluster(c, make, timed, card: str, what: str):
-    """Starts ``c`` (the step ``start``) and returns it. A start that
-    fails after two mons won one election epoch, or while two lead,
-    the reference's elector fault that the port keeps (ROADMAP Queue
-    C: a mon acks two proposers of one epoch), stops ``c`` and starts
-    ``make()`` in its place, once. Any other failed start raises. The
-    returned cluster's ``split_starts`` lists each split seen."""
+def split_epochs(wins) -> dict:
+    """``wins``: (mon, epoch) pairs. Returns each epoch that two or more
+    mons won, with the mons."""
+    won = {}
+    for name, epoch in wins:
+        won.setdefault(int(epoch), []).append(name)
+    return {e: ns for e, ns in sorted(won.items()) if len(ns) > 1}
+
+
+def mon_summary(record: dict) -> dict:
+    """The elections of ``mon_records``' record: how many the mons won,
+    the epochs won by two mons, the collect and begin timeouts, each
+    mon's election epoch, slow commands and worst loop stall."""
+    wins = [(n, w[0]) for n, r in record.items()
+            for w in r.get("wins") or []]
+    timeouts = [r.get("paxos_timeouts") or {} for r in record.values()]
+    return {
+        "elections": len(wins),
+        "split_epochs": split_epochs(wins),
+        "collect_timeouts": sum(t.get("collect", 0) for t in timeouts),
+        "begin_timeouts": sum(t.get("begin", 0) for t in timeouts),
+        "election_epochs": {n: r.get("election_epoch")
+                            for n, r in record.items()},
+        "slow_commands": {n: r.get("slow_commands")
+                          for n, r in record.items()},
+        "stalls": {n: r.get("stalls") for n, r in record.items()}}
+
+
+def require_one_winner(record: dict, summary: dict, card: str,
+                       what: str) -> None:
+    """The gate: no election epoch was won by two mons, read from each
+    mon's ``wins`` (``mon_records``' ``record``, ``mon_summary``'s
+    ``summary``); on a split every mon's record is printed."""
+    if summary["split_epochs"]:
+        print(f"[{card}] {what}: the mons: {json.dumps(record)}",
+              flush=True)
+    require(not summary["split_epochs"],
+            f"{what}: epochs won by two mons: {summary['split_epochs']}")
+
+
+async def one_winner_per_epoch(c, card: str, what: str) -> dict:
+    """``require_one_winner`` on ``c``'s mons now; returns
+    ``mon_summary``."""
+    record = await mon_records(c)
+    summary = mon_summary(record)
+    require_one_winner(record, summary, card, what)
+    return summary
+
+
+STARTS = []     # every ``start_cluster`` record of this process, in turn
+
+
+async def start_cluster(c, timed, card: str, what: str) -> dict:
+    """Starts ``c`` (the step ``start``) and returns the start's record
+    (``mon_summary``, the start's seconds and whether it started),
+    printed on a line of its own and kept in ``STARTS``. A start that
+    fails prints every mon's record and raises; so does one in which two
+    mons won one election epoch. Nothing is started again."""
+    t0 = time.perf_counter()
+    failed = None
     try:
         await timed("start", c.start())
-        c.split_starts = []
-        return c
-    except Exception:
-        splits = await mon_splits(c, card, what)
-        if not splits:
-            raise
-        print(f"[{card}] {what}: the start failed after a split "
-              f"{splits}; a fresh cluster starts once", flush=True)
-        await c.stop()
-    fresh = make()
-    try:
-        await timed("start", fresh.start())
-    except Exception:
-        await mon_splits(fresh, card, what)
-        await fresh.stop()
-        raise
-    except BaseException:
-        await fresh.stop()
-        raise
-    fresh.split_starts = splits
-    return fresh
+    except Exception as e:
+        failed = e
+    seconds = time.perf_counter() - t0
+    record = await mon_records(c)
+    start = dict(mon_summary(record), what=what, s=seconds,
+                 ok=failed is None)
+    STARTS.append(start)
+    print(f"[{card}] {what} start: {json.dumps(start)}", flush=True)
+    if failed is not None:
+        print(f"[{card}] {what}: the start failed; the mons: "
+              f"{json.dumps(record)}", flush=True)
+        raise failed
+    require_one_winner(record, start, card, what)
+    return start
 
 
 def shard_crcs(objs: dict, device: str) -> dict:
@@ -4675,7 +4751,7 @@ def shard_audit(held: dict, want: dict, where: dict) -> list:
     return found
 
 
-def osd_cluster_path_phase(card: str, pool) -> dict:
+def osd_cluster_path_phase(card: str, pool, start_only: bool = False) -> dict:
     """The OSD daemon and the dev cluster on the card (phases 41-48): a
     ``vstart`` cluster (the proc backend: one process per daemon) of three
     mons and twelve OSD daemons serves a ``rados``-bench-style client on
@@ -4683,7 +4759,9 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
     kernels on the path (every daemon's counts start at 0 with its
     process, the client's are set to 0 just before the cluster starts,
     and all are read as the daemons end) and the largest difference of
-    any launch from its plain version."""
+    any launch from its plain version. ``start_only``: the cluster is
+    started, its start gated and recorded, and stopped; returns the
+    start's record (``start_cluster``)."""
     import os
 
     from ceph_tpu_torch.crush import kernels as ckern
@@ -4742,10 +4820,8 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
     async def run(clog):
         clog.real.launches = 0
         clog.label = "start"
-        def make():
-            return SmokeCluster(n_mons=CL_MONS, n_osds=CL_OSDS,
-                                config=CL_CONFIG, device="cuda")
-        c = make()
+        c = SmokeCluster(n_mons=CL_MONS, n_osds=CL_OSDS, config=CL_CONFIG,
+                         device="cuda")
         # daemon -> one `smoke drain` and one `smoke stats` per process
         # it ran as (a revived OSD is a second process)
         children, stats = {}, {}
@@ -4780,8 +4856,10 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
             return {n: o["election_epoch"] for n, o in zip(mons, outs)}
 
         try:
-            c = await start_cluster(c, make, timed, card, "osd_cluster_path")
-            rec["split_starts"] = c.split_starts
+            rec["start"] = await start_cluster(c, timed, card,
+                                               "osd_cluster_path")
+            if start_only:
+                return None
             await asyncio.gather(*[c.wait_for_daemon_ready(n, 120)
                                    for n in c.children])
             cl = c.client
@@ -5083,6 +5161,8 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
                              "last": final, "client_maps": len(epochs)}
             rec["client_lookups_by_epoch"] = lookups
             rec["client_wire"] = dict(cl.monc.msgr.wire)
+            rec["mons_at_end"] = await one_winner_per_epoch(
+                c, card, "osd_cluster_path")
             await collect([n for n in c.children if n not in dead])
             rec["child_ready_s"] = {n: [s["ready_s"] for s in v]
                                     for n, v in sorted(stats.items())}
@@ -5114,10 +5194,13 @@ def osd_cluster_path_phase(card: str, pool) -> dict:
     torch.cuda.empty_cache()
     rec["card_free_GiB_at_start"] = torch.cuda.mem_get_info()[0] / gib
     with StepLaunchLog(ckern) as clog:
-        om, table = asyncio.run(run(clog))
+        out = asyncio.run(run(clog))
         torch.cuda.synchronize()
         c_client = clog.real.launches
         clog.drain("osd cluster client")
+    if start_only:
+        return rec["start"]
+    om, table = out
 
     # -- the launches of every daemon and the client ----------------------
     children, stats = rec.pop("children"), rec.pop("stats")
@@ -5408,12 +5491,10 @@ def rbd_path_phase(card: str) -> dict:
     async def run(clog):
         clog.real.launches = 0
         clog.label = "start"
-        def make():
-            return SmokeCluster(
-                n_mons=RBD_MONS, n_osds=RBD_OSDS, n_mgrs=RBD_MGRS,
-                mgr_modules=list(RBD_MGR_MODULES), config=RBD_CONFIG,
-                device="cuda")
-        c = make()
+        c = SmokeCluster(
+            n_mons=RBD_MONS, n_osds=RBD_OSDS, n_mgrs=RBD_MGRS,
+            mgr_modules=list(RBD_MGR_MODULES), config=RBD_CONFIG,
+            device="cuda")
         children, stats = {}, {}
         dead = set()                    # hard-stopped children
 
@@ -5498,8 +5579,7 @@ def rbd_path_phase(card: str) -> dict:
         try:
             # -- 49. start everything, the mgrs included ----------------------
             # returns with a mgr active
-            c = await start_cluster(c, make, timed, card, "rbd_path")
-            rec["split_starts"] = c.split_starts
+            rec["start"] = await start_cluster(c, timed, card, "rbd_path")
             await asyncio.gather(*[c.wait_for_daemon_ready(n, 120)
                                    for n in c.children])
             cl = c.client
@@ -5772,6 +5852,8 @@ def rbd_path_phase(card: str) -> dict:
                 "events": events, "mgr_stats": mgr_stats,
                 "election_epochs": election_epochs, "here": here,
                 "fs_clients": fs_h["fs_clients"]})
+            rec["mons_at_end"] = await one_winner_per_epoch(
+                c, card, "rbd_path")
             await collect([n for n in c.children if n not in dead])
         except BaseException:
             for n in list(c.children):
@@ -7185,11 +7267,14 @@ def multi_device_path_phase(card: str) -> dict:
                 gf=(sum(launches["gf"].values()), glog.worst))
 
 
-def osd_cluster_runs(n: int, budget: float) -> None:
+def osd_cluster_runs(n: int, budget: float, start_only: bool) -> None:
     """``osd_cluster_path`` alone, ``n`` times in a row (no new run
-    starts after ``budget`` seconds): the phase's gates, each run's
-    outcome on a line, and the daemons' log of a failed run kept as
-    ``build/osd_cluster_path.<run>.log``. Exits 1 if any run failed."""
+    starts after ``budget`` seconds); ``start_only``: only the cluster's
+    start, gated and recorded, then its stop. Each run's outcome and
+    start on a line, the daemons' log of a failed run kept as
+    ``build/osd_cluster_path.<run>.log``, and at the end the starts
+    together: their seconds, elections, epochs won by two mons, collect
+    and begin timeouts and slow commands. Exits 1 if any run failed."""
     import shutil
     import traceback
     if not torch.cuda.is_available():
@@ -7211,7 +7296,7 @@ def osd_cluster_runs(n: int, budget: float) -> None:
                 break
             t1 = time.perf_counter()
             try:
-                osd_cluster_path_phase(card, pool)
+                osd_cluster_path_phase(card, pool, start_only)
                 runs.append({"run": i, "ok": True})
             except Exception as e:
                 traceback.print_exc()
@@ -7221,6 +7306,19 @@ def osd_cluster_runs(n: int, budget: float) -> None:
             runs[-1]["s"] = time.perf_counter() - t1
             print(f"[{card}] osd_cluster_runs: {json.dumps(runs[-1])}",
                   flush=True)
+    print(f"[{card}] osd_cluster_runs starts: " + json.dumps({
+        "starts": len(STARTS), "started": sum(s["ok"] for s in STARTS),
+        "s": [s["s"] for s in STARTS],
+        "elections": [s["elections"] for s in STARTS],
+        "starts_with_a_split": sum(bool(s["split_epochs"])
+                                   for s in STARTS),
+        "split_epochs": [s["split_epochs"] for s in STARTS
+                         if s["split_epochs"]],
+        "collect_timeouts": [s["collect_timeouts"] for s in STARTS],
+        "begin_timeouts": [s["begin_timeouts"] for s in STARTS],
+        "slow_commands": [sum(len(v or []) for v in
+                              s["slow_commands"].values())
+                          for s in STARTS]}), flush=True)
     print(f"[{card}] osd_cluster_runs: {sum(r['ok'] for r in runs)} of "
           f"{len(runs)} passed", flush=True)
     sys.exit(0 if runs and all(r["ok"] for r in runs) else 1)
@@ -7232,7 +7330,9 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--cli-child"]:
         cli_child(sys.argv[2:])
     elif sys.argv[1:2] == ["--osd-cluster-runs"]:
-        osd_cluster_runs(int(sys.argv[2]), float(sys.argv[3])
-                         if len(sys.argv) > 3 else float("inf"))
+        # --osd-cluster-runs N [BUDGET_S] [--start-only]
+        args = [a for a in sys.argv[2:] if a != "--start-only"]
+        osd_cluster_runs(int(args[0]), float(args[1]) if len(args) > 1
+                         else float("inf"), "--start-only" in sys.argv)
     else:
         main()

@@ -380,41 +380,45 @@ class _StartCluster:
     async def daemon_command(self, name, cmd):
         if name == "mon.c":
             raise FileNotFoundError(name)
-        return {"leader": name in self.leaders, "election_epoch": 4,
-                "quorum": [0, 2]}
+        return {"leader": name in (self.leaders or ()),
+                "election_epoch": 4, "quorum": [0, 2]}
 
 
-@pytest.mark.parametrize("leaders,restarted", [
+async def _timed(what, coro):
+    return await coro
+
+
+@pytest.mark.parametrize("leaders,two_lead", [
     ({"mon.a", "mon.b"}, True), ({"mon.a"}, False), (None, False)])
-def test_smoke_starts_again_only_after_a_split(leaders, restarted):
-    """chip_smoke.py's cluster phases start a fresh cluster, once, only
-    when the failed start left two mons leading; any other failure
-    raises."""
-    async def timed(what, coro):
-        return await coro
-
+def test_smoke_starts_again_only_after_a_split(leaders, two_lead):
+    """chip_smoke.py's cluster phases start no cluster again (once they
+    did after a split): a failed start raises, whether or not two mons
+    lead, and stops nothing; a start that succeeded returns its record,
+    kept in ``STARTS``."""
     async def go():
         c = _StartCluster(leaders)
-        if leaders is not None and not restarted:
+        if leaders is not None:
             with pytest.raises(TimeoutError):
-                await cs.start_cluster(c, _StartCluster, timed, "cpu", "t")
-            return
-        got = await cs.start_cluster(c, _StartCluster, timed, "cpu", "t")
-        assert (got is not c) == restarted and c.stops == int(restarted)
-        assert got.split_starts == ([[["mon.a", 4, [0, 2]],
-                                      ["mon.b", 4, [0, 2]]]]
-                                    if restarted else [])
-    asyncio.run(go())
+                await cs.start_cluster(c, _timed, "cpu", "t")
+            return c, cs.STARTS[-1]
+        return c, await cs.start_cluster(c, _timed, "cpu", "t")
+    c, start = asyncio.run(go())
+    assert c.stops == 0 and start is cs.STARTS[-1]
+    assert start["ok"] == (leaders is None)
+    assert start["elections"] == 0 and start["split_epochs"] == {}
+    assert start["election_epochs"] == {"mon.a": 4, "mon.b": 4,
+                                        "mon.c": None}
 
 
 class _HealedSplit(_StartCluster):
-    """A failed start after mon.a and mon.b both won epoch 4 (quorums
-    [0, 2] and [1, 2]); by the time the smoke looks, mon.a won epoch 6
-    and leads alone."""
+    """A start after mon.a and mon.b both won epoch 4 (quorums [0, 2]
+    and [1, 2]); by the time the smoke looks, mon.a won epoch 6 and
+    leads alone."""
 
     async def daemon_command(self, name, cmd):
         if name == "mon.c":
-            return {"leader": False, "election_epoch": 6, "wins": []}
+            return {"leader": False, "election_epoch": 6, "wins": [],
+                    "paxos_timeouts": {"collect": 1, "begin": 0}}
         wins = {"mon.a": [[4, [0, 2], 8.1], [6, [0, 1, 2], 10.4]],
                 "mon.b": [[4, [1, 2], 8.2]]}[name]
         return {"leader": name == "mon.a", "election_epoch": 6,
@@ -423,12 +427,10 @@ class _HealedSplit(_StartCluster):
 
 @pytest.mark.parametrize("wins_seen", [True, False])
 def test_smoke_starts_again_after_a_healed_split(wins_seen):
-    """A split that healed before the smoke looked still starts a fresh
-    cluster, once, read from the epochs each mon won; without that
-    record one leader is no split, and the failure raises."""
-    async def timed(what, coro):
-        return await coro
-
+    """A failed start raises and starts nothing again (once a split,
+    healed or not, started a fresh cluster); its record holds the epochs
+    each mon won, so a split that healed before the smoke looked shows
+    in it; without the won epochs it shows none."""
     class Healed(_HealedSplit):
         async def daemon_command(self, name, cmd):
             out = await super().daemon_command(name, cmd)
@@ -436,13 +438,38 @@ def test_smoke_starts_again_after_a_healed_split(wins_seen):
 
     async def go():
         c = Healed(leaders=set())
-        if not wins_seen:
-            with pytest.raises(TimeoutError):
-                await cs.start_cluster(c, _StartCluster, timed, "cpu", "t")
-            assert c.stops == 0
-            return
-        got = await cs.start_cluster(c, _StartCluster, timed, "cpu", "t")
-        assert got is not c and c.stops == 1
-        assert got.split_starts == [[["mon.a", 4, [0, 2]],
-                                     ["mon.b", 4, [1, 2]]]]
-    asyncio.run(go())
+        with pytest.raises(TimeoutError):
+            await cs.start_cluster(c, _timed, "cpu", "t")
+        return c, cs.STARTS[-1]
+    c, start = asyncio.run(go())
+    assert c.stops == 0 and not start["ok"]
+    assert start["collect_timeouts"] == 1 and start["begin_timeouts"] == 0
+    if wins_seen:
+        assert start["elections"] == 3
+        assert start["split_epochs"] == {4: ["mon.a", "mon.b"]}
+    else:
+        assert start["elections"] == 0 and start["split_epochs"] == {}
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_a_start_in_which_two_mons_won_one_epoch_fails(split):
+    """The smoke's gate on a start that succeeded: two mons that won one
+    election epoch fail it, healed or not; one winner per epoch passes,
+    and the record counts the elections."""
+    class Started(_HealedSplit):
+        async def daemon_command(self, name, cmd):
+            out = await super().daemon_command(name, cmd)
+            if not split and name == "mon.b":
+                out = dict(out, wins=[[8, [0, 1, 2], 12.0]])
+            return out
+
+    async def go():
+        c = Started()
+        if split:
+            with pytest.raises(RuntimeError, match="won by two mons"):
+                await cs.start_cluster(c, _timed, "cpu", "t")
+            return cs.STARTS[-1]
+        return await cs.start_cluster(c, _timed, "cpu", "t")
+    start = asyncio.run(go())
+    assert start["ok"] and start["elections"] == 3
+    assert bool(start["split_epochs"]) == split
